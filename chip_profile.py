@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's paths, on one CUDA card.
+
+    python3 chip_profile.py [--reps 5]
+
+Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
+the CUDA toolkit.  For each 720p path of `chip_smoke.py` (the searches at
+the BBME command line's defaults, the GME step under `-sp 0/1/2` and a
+volume radius of 64 on 8 pairs, the default step on 24 pairs) it prints:
+
+- the host time of one call (median of `--reps` synchronised calls after two
+  warm-up calls, no profiler attached);
+- the device's busy time in one profiled call: the union of the intervals of
+  the device's own activity (kernels, copies, fills) that `torch.profiler`
+  records, not the CPU-side operator rows, which hold their kernels' time a
+  second time;
+- the idle share, 1 - busy / host time, and the largest device items.
+
+Then it runs the two offset-tiled volume kernels at their paths' shapes
+while nvidia-smi samples the SM clock, and prints each kernel's pixel terms
+per second against the shared-memory load bound at that clock (two byte
+loads per term, one warp-wide load per clock per SM).  The last line is one
+JSON object with every number printed.  It imports neither `jax` nor
+`gme_tpu`, and needs the card.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from chip_smoke import (BATCH_720P, BATCH_SEARCH, CLI_BS, CLI_SW, GME_OPTIONS, PAN_STEP,
+                        SEARCH_NAMES, cuda_ms, synthetic_pan)
+
+
+def smi(*fields):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={','.join(fields)}",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def busy_intervals(torch, prof):
+    """(busy us, {name: us}) of the device activity in a profile."""
+    spans, by_name = [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + (end - start)
+    busy, reach = 0.0, -np.inf
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy, by_name
+
+
+def profile_path(torch, fn, reps):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, by_name = busy_intervals(torch, prof)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device activity")
+    wall_ms = float(np.median(walls)) * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "walls_ms": [w * 1e3 for w in walls],
+            "device_busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e3 / wall_ms,
+            "top_ms": [[name[:60], us / 1e3] for name, us in top]}
+
+
+def clocked(torch, fn, seconds=2.0):
+    """Run `fn` back to back for about `seconds` while nvidia-smi samples the
+    SM clock every 100 ms; (median MHz under load, max MHz)."""
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        sampler.terminate()
+        out, _ = sampler.communicate(timeout=30)
+    mhz = [float(v) for v in out.split() if v.strip().replace(".", "").isdigit()]
+    if len(mhz) < 3:
+        raise RuntimeError(f"nvidia-smi gave too few SM clock samples: {out!r}")
+    under_load = float(np.median(mhz[1:-1]))
+    return under_load, float(smi("clocks.max.sm").split()[0])
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    import gme_tpu_torch
+    from gme_tpu_torch.config import MAE, MSE, GMEConfig
+    from gme_tpu_torch.ops import bbme
+    from gme_tpu_torch.ops import cuda_kernels as K
+
+    card = smi("name", "power.limit")
+    print(f"[device] {card}", flush=True)
+    K.load_library()
+    dev = torch.device("cuda", 0)
+    frames = synthetic_pan(BATCH_720P + 1, 720, 1280, PAN_STEP)
+    prev = torch.from_numpy(frames[:-1]).to(dev)
+    curr = torch.from_numpy(frames[1:]).to(dev)
+    sp_prev, sp_curr = prev[:BATCH_SEARCH], curr[:BATCH_SEARCH]
+    cfg = GMEConfig()
+
+    paths = {}
+    for sp in range(4):
+        kw = dict(block_size=CLI_BS, search_window=CLI_SW, searching_procedure=sp,
+                  pnorm_distance=MAE)
+        paths[f"search {SEARCH_NAMES[sp]}"] = (
+            lambda kw=kw: bbme.get_motion_field(sp_prev, sp_curr, **kw))
+    for opt, (kw, _) in GME_OPTIONS.items():
+        paths[f"gme {opt}"] = (lambda ocfg=cfg.replace(**kw):
+                               gme_tpu_torch.gme_pipeline_batch(sp_prev, sp_curr, ocfg))
+    paths["gme default"] = lambda: gme_tpu_torch.gme_pipeline_batch(prev, curr, cfg)
+
+    result = {"card": card, "paths": {}, "kernels": {}}
+    for path, fn in paths.items():
+        r = profile_path(torch, fn, args.reps)
+        result["paths"][path] = r
+        top = ", ".join(f"{n} {ms:.2f}" for n, ms in r["top_ms"])
+        print(f"[path] {path}: host {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
+              f"idle {r['idle_share']:.3f} ({card}); largest: {top}", flush=True)
+        torch.cuda.empty_cache()
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    R3 = bbme.threestep_search_radius(CLI_BS, CLI_SW)
+    shapes = {
+        "cost_volume_rowoffset": (bbme.volume_inputs(sp_prev, sp_curr, CLI_BS, R3), CLI_BS,
+                                  2 * R3 + 1, lambda p, c, bs, D: K.cost_volume_rowoffset(
+                                      p, c, bs, D, MAE)),
+        "cost_volume_cross": (bbme.volume_inputs(sp_prev, sp_curr, cfg.block_size, 64),
+                              cfg.block_size, 129, K.cost_volume_cross),
+    }
+    for kernel, ((p, c), bs, D, launch) in shapes.items():
+        fn = lambda: launch(p, c, bs, D)  # noqa: E731
+        ms = cuda_ms(torch, fn, 10)
+        mhz, max_mhz = clocked(torch, fn)
+        terms = p.numel() * D * D
+        rate = terms / (ms * 1e-3)
+        bound = sms * 32 * mhz * 1e6 / 2
+        result["kernels"][kernel] = {"shape": [list(p.shape), bs, D], "ms": ms,
+                                     "terms_per_s": rate, "sm_mhz_under_load": mhz,
+                                     "sm_mhz_max": max_mhz, "sms": sms, "load_bound": bound,
+                                     "share_of_bound": rate / bound}
+        print(f"[kernel] {kernel} B={p.shape[0]} {tuple(p.shape[1:])} bs={bs} D={D}: {ms:.4f} ms, "
+              f"{rate / 1e12:.3f} T terms/s; SM clock under load {mhz:.0f} MHz (max {max_mhz:.0f}), "
+              f"{sms} SMs: load bound {bound / 1e12:.3f} T/s, {rate / bound:.3f} of it ({card})",
+              flush=True)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,15 +4,29 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
-the CUDA toolkit.  It builds the port's kernels from the sources in the
-checkout, holds each kernel to its plain PyTorch version at the main path's
-720p shapes, runs the per-pair step on the three pan240 golden pairs
-(against the goldens and against the port's own CPU run) and on a 24-pair
-720p synthetic pan, and prints one line per phase.  The last lines are a
-JSON record of the kernels, the card's name and power limit from
-nvidia-smi, and `{"ok": true, "device": {...}}`.  Any failure exits
-non-zero before that last line; without a CUDA device it fails at once.
-It imports neither `jax` nor `gme_tpu`.
+the CUDA toolkit.  It builds the port's six kernels from the sources in the
+checkout (one nvcc per source, side by side), holds each kernel to its
+plain PyTorch version at the shapes its path gives it, and drives each path
+through the entry points a user calls:
+
+- the block-matching goldens (`bbme_synthetic.npz`, both engines, and
+  `hierarchical_bbme.npz`) on the card;
+- `get_motion_field` under each procedure at the BBME command line's
+  defaults on an 8-pair 720p synthetic pan;
+- `gme_pipeline_batch` under `-sp 0/1/2` and a volume radius of 64 on an
+  8-pair 720p pan, and all of them on the three pan240 golden pairs against
+  the port's own CPU run;
+- the default per-pair step on the pan240 golden pairs (against the goldens
+  and the CPU run) and on a 24-pair 720p pan.
+
+Each 720p path runs with the launch counts set to 0 just before it and read
+just after, and fails unless every kernel of that path launched.  Meanwhile
+each kernel's arguments are kept at every shape the path gives it, and at
+the end each kernel is held against its plain version on them.  It prints one
+line per phase.  The last lines are a JSON record of the kernels, the
+card's name and power limit from nvidia-smi, and `{"ok": true, "device":
+{...}}`.  Any failure exits non-zero before that last line; without a CUDA
+device it fails at once.  It imports neither `jax` nor `gme_tpu`.
 """
 
 import json
@@ -25,20 +39,47 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GOLDENS = os.path.join(HERE, "tests", "goldens", "pan240_pipeline.npz")
+GOLDEN_DIR = os.path.join(HERE, "tests", "goldens")
+GOLDENS = os.path.join(GOLDEN_DIR, "pan240_pipeline.npz")
 PAN240_PAIRS = [(10, 11), (60, 61), (150, 151)]
 INT_KEYS = ("model_motion_field", "compensated", "diff_curr_prev",
             "diff_curr_comp", "volume_edge_hits")
 BATCH_720P = 24          # the 720p batch of bench.py
+BATCH_SEARCH = 8         # the 720p batch of the search and GME-option paths
 PAN_STEP = (3, 6)        # synthetic pan: (rows, cols) per frame at 720p
 KERNEL_REPS, PLAIN_REPS = 10, 3
+# The BBME command line's defaults (gme_tpu/cli.py:227-237): MAE, bs 12, sw 8.
+CLI_BS, CLI_SW = 12, 8
+SEARCH_NAMES = {0: "exhaustive", 1: "three-step", 2: "2D-log", 3: "diamond"}
+# The GME options of this path, with the kernels each must launch.
+GME_OPTIONS = {
+    "sp0": ({"searching_procedure": 0},
+            ("cost_volume_rowoffset", "cost_volume_mse_block", "warp_block_field")),
+    "sp1": ({"searching_procedure": 1},
+            ("cost_volume_small_block", "cost_volume_mse_block", "warp_block_field")),
+    "sp2": ({"searching_procedure": 2},
+            ("cost_volume_small_block", "cost_volume_mse_block", "warp_block_field")),
+    "R64": ({"volume_radius": 64},
+            ("cost_volume_small_block", "cost_volume_cross", "chase_fixpoint",
+             "warp_block_field")),
+}
+DEFAULT_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block", "chase_fixpoint",
+                   "warp_block_field")
 
 # The Pallas kernel each CUDA kernel replaces (kernel body, file:line).
 REPLACES = {
     "cost_volume_small_block": "gme_tpu/ops/pallas_kernels.py:128",
     "cost_volume_mse_block": "gme_tpu/ops/pallas_kernels.py:228",
+    "cost_volume_rowoffset": "gme_tpu/ops/pallas_kernels.py:98",
+    "cost_volume_cross": "gme_tpu/ops/pallas_kernels.py:71",
     "chase_fixpoint": "gme_tpu/ops/pallas_kernels.py:872",
     "warp_block_field": "gme_tpu/ops/pallas_kernels.py:719",
+}
+# The path whose run gives each kernel's `launches` in the JSON record.
+MAIN_PATH = {
+    "cost_volume_small_block": "gme default", "cost_volume_mse_block": "gme default",
+    "chase_fixpoint": "gme default", "warp_block_field": "gme default",
+    "cost_volume_rowoffset": "search three-step", "cost_volume_cross": "gme R64",
 }
 
 
@@ -112,14 +153,65 @@ def ptxas_summary(log):
     return out
 
 
+def capturing(torch, name, wrapper, captured):
+    """`wrapper` that also keeps a host copy of its arguments the first time
+    it is called at each shape, keyed by (name, shapes and scalars)."""
+    def call(*args):
+        key = (name,) + tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args)
+        if key not in captured:
+            captured[key] = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        return wrapper(*args)
+    return call
+
+
+def counted(torch, K, path, fn, kernels, launch_log, captured):
+    """Run `fn` with every launch count set to 0 just before and read just
+    after; fail unless each kernel of `kernels` launched.  Every kernel
+    wrapper called meanwhile leaves its arguments in `captured` at each new
+    shape, so that each shape the path gives a kernel can later be held
+    against the plain version."""
+    originals = {k: getattr(K, k) for k in K.LAUNCHES}
+    for k, wrapper in originals.items():
+        setattr(K, k, capturing(torch, k, wrapper, captured))
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for k, wrapper in originals.items():
+            setattr(K, k, wrapper)
+    launches = dict(K.LAUNCHES)
+    launch_log[path] = launches
+    missing = [k for k in kernels if launches[k] == 0]
+    check(not missing, f"{path}: kernels of the path did not launch: {missing} ({launches})")
+    return out
+
+
+def timed(torch, fn, reps=3):
+    """Median host time of `fn` over `reps` synchronised calls, after one
+    warm-up call whose result is returned."""
+    out = fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, float(np.median(walls)), walls
+
+
 def run(torch):
     import gme_tpu_torch
-    from gme_tpu_torch.config import MSE, GMEConfig
+    from gme_tpu_torch.config import MAE, MSE, GMEConfig
     from gme_tpu_torch.ops import bbme
     from gme_tpu_torch.ops import cuda_kernels as K
 
     dev = torch.device("cuda", 0)
     cfg = GMEConfig()
+    launch_log = {}
+    captured = {}  # (kernel, argument shapes) -> host copies of the arguments
 
     # Phase 1: device.
     name = torch.cuda.get_device_name(0)
@@ -149,21 +241,39 @@ def run(torch):
     curr_pyr = gme_tpu_torch.get_pyramids(curr, cfg.pyramid_levels)
 
     # Phase 3: each kernel against its plain version, bit for bit.
-    records = {}
+    records = {k: {"max_abs_err": 0.0} for k in K.LAUNCHES}
+    # Each wrapper's plain version, called with the wrapper's arguments.
+    plain_of = {
+        "cost_volume_small_block": K.cost_volume_plain,
+        "cost_volume_mse_block": lambda p, c, bs, D: K.cost_volume_plain(p, c, bs, D, MSE),
+        "cost_volume_rowoffset": K.cost_volume_plain,
+        "cost_volume_cross": K.cost_volume_cross_plain,
+        "chase_fixpoint": K.chase_fixpoint_plain,
+        "warp_block_field": K.warp_block_field_plain,
+    }
 
-    def compare(kernel, run_kernel, run_plain, shape_note):
-        got, want = run_kernel(), run_plain()
+    def agree(kernel, got, want):
+        """Fold the error of `got` against `want` into the kernel's record
+        and fail unless they are equal; returns the error."""
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+        records[kernel]["max_abs_err"] = max(err, records[kernel]["max_abs_err"])
+        check(equal, f"{kernel} disagrees with its plain version (max_abs_err {err})")
+        return err
+
+    def compare(kernel, run_kernel, run_plain, shape_note, main=True):
+        """Hold the kernel to its plain version and time both; the record
+        keeps the times of the main path's shape (`main`)."""
+        err = agree(kernel, run_kernel(), run_plain())
         ms = cuda_ms(torch, run_kernel, KERNEL_REPS)
         plain_ms = cuda_ms(torch, run_plain, PLAIN_REPS)
-        records[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        phase("kernels", f"{kernel} {shape_note}: bit-equal={equal} max_abs_err={err} "
+        if main:
+            records[kernel].update(ms=ms, plain_ms=plain_ms)
+        phase("kernels", f"{kernel} {shape_note}: bit-equal=True max_abs_err={err} "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
-        check(equal, f"{kernel} disagrees with its plain version (max_abs_err {err})")
 
     R0 = min(cfg.dense_volume_radius, max(prev_pyr[0].shape[1:]))
     p0, c0 = bbme.volume_inputs(prev_pyr[0], curr_pyr[0], cfg.dense_block_size, R0)
@@ -172,7 +282,16 @@ def run(torch):
             lambda: K.cost_volume_small_block(p0, c0, cfg.dense_block_size, D0, MSE),
             lambda: K.cost_volume_plain(p0, c0, cfg.dense_block_size, D0, MSE),
             f"B={BATCH_720P} {tuple(prev_pyr[0].shape[1:])} bs={cfg.dense_block_size} D={D0}")
-    del p0, c0
+    # The exhaustive dense init of `-sp 0`: bs 2, D = 2*sw + bs = 6.
+    p6, c6 = bbme.exhaustive_inputs(prev_pyr[0], curr_pyr[0], cfg.dense_block_size,
+                                    cfg.search_window)
+    D6 = 2 * cfg.search_window + cfg.dense_block_size
+    compare("cost_volume_rowoffset",
+            lambda: K.cost_volume_rowoffset(p6, c6, cfg.dense_block_size, D6, MSE),
+            lambda: K.cost_volume_plain(p6, c6, cfg.dense_block_size, D6, MSE),
+            f"B={BATCH_720P} {tuple(prev_pyr[0].shape[1:])} MSE bs={cfg.dense_block_size} "
+            f"D={D6} (GME -sp 0 dense init)", main=False)
+    del p0, c0, p6, c6
 
     R2 = min(cfg.volume_radius, max(prev.shape[1:]))
     p2, c2 = bbme.volume_inputs(prev, curr, cfg.block_size, R2)
@@ -182,6 +301,43 @@ def run(torch):
             lambda: K.cost_volume_plain(p2, c2, cfg.block_size, D2, MSE),
             f"B={BATCH_720P} {tuple(prev.shape[1:])} bs={cfg.block_size} D={D2}")
     del p2, c2
+
+    # The BBME command line's three-step volume: MAE, bs 12, exact radius 25.
+    R3 = bbme.threestep_search_radius(CLI_BS, CLI_SW)
+    p3, c3 = bbme.volume_inputs(prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], CLI_BS, R3)
+    D3 = 2 * R3 + 1
+    compare("cost_volume_rowoffset",
+            lambda: K.cost_volume_rowoffset(p3, c3, CLI_BS, D3, MAE),
+            lambda: K.cost_volume_plain(p3, c3, CLI_BS, D3, MAE),
+            f"B={BATCH_SEARCH} {tuple(prev.shape[1:])} MAE bs={CLI_BS} D={D3} (three-step)")
+    del p3, c3
+
+    # The level-2 cross volume of the GME step at volume_radius=64: B 8,
+    # bs 16, D 129.
+    R64 = 64
+    p4, c4 = bbme.volume_inputs(prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], cfg.block_size, R64)
+    D4 = 2 * R64 + 1
+    compare("cost_volume_cross",
+            lambda: K.cost_volume_cross(p4, c4, cfg.block_size, D4),
+            lambda: K.cost_volume_cross_plain(p4, c4, cfg.block_size, D4),
+            f"B={BATCH_SEARCH} {tuple(prev.shape[1:])} bs={cfg.block_size} D={D4}")
+    # The decomposed MSE (cross kernel + int32 box sums) against the direct
+    # MSE volume of the row-offset kernel and the plain version.
+    ways = {"decomposed": lambda: bbme._dfd_cost_volume(p4, c4, cfg.block_size, D4, MSE),
+            "direct": lambda: K.cost_volume_rowoffset(p4, c4, cfg.block_size, D4, MSE)}
+    want = K.cost_volume_plain(p4, c4, cfg.block_size, D4, MSE)
+    notes = []
+    for way, fn in ways.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        check(torch.equal(fn(), want), f"the {way} MSE volume differs from the plain one")
+        extra = torch.cuda.max_memory_allocated() - base
+        notes.append(f"{way} {cuda_ms(torch, fn, KERNEL_REPS):.4f} ms, "
+                     f"{extra / 2**30:.2f} GiB above its inputs")
+    phase("kernels", f"MSE B={BATCH_SEARCH} bs={cfg.block_size} D={D4}: decomposed == direct == "
+          f"plain; {'; '.join(notes)} ({card})")
+    del p4, c4, want
 
     H, W = prev.shape[1:]
     bs = cfg.block_size
@@ -209,19 +365,107 @@ def run(torch):
     del d, prev_pyr, curr_pyr
     torch.cuda.empty_cache()
 
-    # Phase 4: the pan240 golden pairs as one batch.
-    g = np.load(GOLDENS)
-    gp = np.stack([g[f"prev_{a}_{b}"] for a, b in PAN240_PAIRS])
-    gc = np.stack([g[f"curr_{a}_{b}"] for a, b in PAN240_PAIRS])
-    gpu = gme_tpu_torch.gme_pipeline_batch(torch.from_numpy(gp).to(dev), torch.from_numpy(gc).to(dev))
+    # Phase 4: the block-matching goldens on the card, both engines.
+    g = np.load(os.path.join(GOLDEN_DIR, "bbme_synthetic.npz"))
+    gprev = torch.from_numpy(g["prev"])[None].to(dev)
+    gcurr = torch.from_numpy(g["curr"])[None].to(dev)
+    n_cases = 0
+    for sp in range(4):
+        for pn in (MAE, MSE):
+            for gbs, gsw in ((4, 2), (8, 4), (12, 8)):
+                ref = g[f"mf_sp{sp}_pn{pn}_bs{gbs}_sw{gsw}"]
+                for impl in (("volume", "gather") if sp else ("auto",)):
+                    f = bbme.get_motion_field(gprev, gcurr, block_size=gbs, search_window=gsw,
+                                              searching_procedure=sp, pnorm_distance=pn,
+                                              search_impl=impl)
+                    check(np.array_equal(f[0].cpu().numpy(), ref),
+                          f"bbme golden sp{sp} pn{pn} bs{gbs} sw{gsw} {impl} differs")
+                    n_cases += 1
+    h = np.load(os.path.join(GOLDEN_DIR, "hierarchical_bbme.npz"))
+    hf = gme_tpu_torch.hierarchical_wrapper(torch.from_numpy(h["prev"])[None].to(dev),
+                                            torch.from_numpy(h["curr"])[None].to(dev),
+                                            block_size=10, search_window=4,
+                                            searching_procedure=3)
+    check(np.array_equal(hf[0].cpu().numpy(), h["field"]), "hierarchical golden differs")
+    phase("goldens", f"bbme_synthetic: 24 cases, {n_cases} (case, engine) runs on the card equal "
+          "the goldens; hierarchical_bbme equal")
+
+    # Phase 5: get_motion_field at the BBME command line's defaults, 720p.
+    sp_prev, sp_curr = prev[:BATCH_SEARCH], curr[:BATCH_SEARCH]
+    crop = (slice(0, 1), slice(0, 360), slice(0, 640))
+    for sp in range(4):
+        kw = dict(block_size=CLI_BS, search_window=CLI_SW, searching_procedure=sp,
+                  pnorm_distance=MAE, return_diagnostics=True)
+        path = f"search {SEARCH_NAMES[sp]}"
+        kernels = ("cost_volume_rowoffset",) + (("chase_fixpoint",) if sp == 3 else ())
+        (field, diag), wall, _ = timed(
+            torch, lambda: counted(torch, K, path,
+                                   lambda: bbme.get_motion_field(sp_prev, sp_curr, **kw),
+                                   kernels, launch_log, captured))
+        check(field.shape == (BATCH_SEARCH, H // CLI_BS, W // CLI_BS, 2)
+              and field.dtype == torch.int32, f"{path}: unexpected field")
+        inner = field[:, 2:-2, 2:-2].reshape(-1, 2).cpu().numpy()
+        found = float((inner == [PAN_STEP[1], PAN_STEP[0]]).all(axis=1).mean())
+        if sp in (0, 3):  # the step sizes of three-step and 2D-log miss (3, 6)
+            check(found >= (0.9 if sp == 0 else 0.8),
+                  f"{path}: the pan is found in only {found:.3f} of the inner cells")
+        small = bbme.get_motion_field(prev[crop].cpu(), curr[crop].cpu(), **kw)
+        on_card = bbme.get_motion_field(prev[crop], curr[crop], **kw)
+        check(torch.equal(small[0], on_card[0].cpu())
+              and torch.equal(small[1]["volume_edge_hits"], on_card[1]["volume_edge_hits"].cpu()),
+              f"{path}: the card and the CPU differ on a 360x640 crop")
+        phase("search", f"{SEARCH_NAMES[sp]} MAE bs={CLI_BS} sw={CLI_SW} B={BATCH_SEARCH} 720p: "
+              f"{wall * 1e3:.2f} ms, {BATCH_SEARCH / wall:.1f} pairs/s ({card}); inner cells on "
+              f"the pan {found:.3f}; volume_edge_hits {diag['volume_edge_hits'].tolist()}; "
+              f"360x640 crop == CPU; launches {launch_log[path]}")
+
+    # Phase 6: the GME options on the pan240 golden pairs, card == CPU.
+    gp = np.load(GOLDENS)
+    pan_prev = torch.from_numpy(np.stack([gp[f"prev_{a}_{b}"] for a, b in PAN240_PAIRS]))
+    pan_curr = torch.from_numpy(np.stack([gp[f"curr_{a}_{b}"] for a, b in PAN240_PAIRS]))
+    for opt, (kw, _) in GME_OPTIONS.items():
+        ocfg = cfg.replace(**kw)
+        on_card = gme_tpu_torch.gme_pipeline_batch(pan_prev.to(dev), pan_curr.to(dev), ocfg)
+        on_cpu = gme_tpu_torch.gme_pipeline_batch(pan_prev, pan_curr, ocfg)
+        for k in INT_KEYS + ("parameters",):
+            check(torch.equal(on_card[k].cpu(), on_cpu[k]), f"pan240 {opt}: card {k} differs from the CPU")
+        phase("options", f"pan240 {opt}: card == CPU (integers and parameters exact); psnr "
+              f"{[round(float(v), 4) for v in on_card['psnr']]}, volume_edge_hits "
+              f"{on_card['volume_edge_hits'].tolist()}")
+
+    # Phase 7: the GME options at 720p, 8 pairs.
+    for opt, (kw, kernels) in GME_OPTIONS.items():
+        ocfg = cfg.replace(**kw)
+        path = f"gme {opt}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, wall, walls = timed(torch, lambda: counted(
+            torch, K, path, lambda: gme_tpu_torch.gme_pipeline_batch(sp_prev, sp_curr, ocfg),
+            kernels, launch_log, captured))
+        peak = torch.cuda.max_memory_allocated()
+        params = out["parameters"].cpu().numpy()
+        check(bool(np.isfinite(params).all()) and bool(torch.isfinite(out["psnr"]).all())
+              and out["compensated"].shape == sp_prev.shape, f"{path}: bad outputs")
+        found = np.abs(params[:, [0, 3]] - [PAN_STEP[1], PAN_STEP[0]]).max(axis=1) < 0.5
+        phase("options", f"{opt} B={BATCH_SEARCH} 720p: step {wall * 1e3:.1f} ms "
+              f"(walls {[round(w * 1e3, 1) for w in walls]}), {BATCH_SEARCH / wall:.2f} pairs/s, "
+              f"peak {peak / 2**30:.2f} GiB ({card}); pan recovered in {int(found.sum())}/"
+              f"{BATCH_SEARCH}; psnr avg {float(out['psnr'].mean()):.4f}; volume_edge_hits "
+              f"{out['volume_edge_hits'].tolist()}; launches {launch_log[path]}")
+        del out
+    del sp_prev, sp_curr
+    torch.cuda.empty_cache()
+
+    # Phase 8: the pan240 golden pairs as one batch, default configuration.
+    gpu = gme_tpu_torch.gme_pipeline_batch(pan_prev.to(dev), pan_curr.to(dev))
     gpu = {k: v.cpu() for k, v in gpu.items()}
-    cpu = gme_tpu_torch.gme_pipeline_batch(torch.from_numpy(gp), torch.from_numpy(gc))
+    cpu = gme_tpu_torch.gme_pipeline_batch(pan_prev, pan_curr)
     for i, (a, b) in enumerate(PAN240_PAIRS):
-        perr = float(np.abs(gpu["parameters"][i].numpy() - g[f"params_{a}_{b}"]).max())
-        cells = float((gpu["model_motion_field"][i].numpy() != g[f"mf_{a}_{b}"]).any(-1).mean())
-        dpsnr = abs(float(gpu["psnr"][i]) - float(g[f"psnr_{a}_{b}"]))
+        perr = float(np.abs(gpu["parameters"][i].numpy() - gp[f"params_{a}_{b}"]).max())
+        cells = float((gpu["model_motion_field"][i].numpy() != gp[f"mf_{a}_{b}"]).any(-1).mean())
+        dpsnr = abs(float(gpu["psnr"][i]) - float(gp[f"psnr_{a}_{b}"]))
         phase("pan240", f"pair {a}-{b}: psnr {float(gpu['psnr'][i]):.4f} dB "
-              f"(golden {float(g[f'psnr_{a}_{b}']):.4f}), params err {perr:.2e}, "
+              f"(golden {float(gp[f'psnr_{a}_{b}']):.4f}), params err {perr:.2e}, "
               f"field cells differing {cells:.3f}, volume_edge_hits {int(gpu['volume_edge_hits'][i])}")
         check(perr < 5e-3 and cells <= 0.02 and dpsnr < 0.2,
               f"pan240 pair {a}-{b} outside the reference tolerances")
@@ -231,24 +475,20 @@ def run(torch):
     check(dpsnr <= 1e-4, f"pan240: GPU psnr differs from the CPU run by {dpsnr}")
     phase("pan240", f"GPU run == CPU plain run: integers and parameters exact, psnr within {dpsnr:.2e} dB")
 
-    # Phase 5: the 720p batch through the main path.
+    # Phase 9: the 720p batch through the default step.
     def step():
-        out = gme_tpu_torch.gme_pipeline_batch(prev, curr, cfg)
-        torch.cuda.synchronize()
-        return out
+        return gme_tpu_torch.gme_pipeline_batch(prev, curr, cfg)
 
-    warm = step()
+    warm = counted(torch, K, "gme default", step, DEFAULT_KERNELS, launch_log, captured)
+    launches = launch_log["gme default"]
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = step()
-    walls = [time.perf_counter() - t0]
-    launches = dict(K.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    for _ in range(2):
+    walls = []
+    for _ in range(3):
         t0 = time.perf_counter()
-        step()
+        out = step()
+        torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
     wall = float(np.median(walls))
     hits = out["volume_edge_hits"].cpu().numpy()
     params = out["parameters"].cpu().numpy()
@@ -257,7 +497,6 @@ def run(torch):
     phase("720p", f"volume_edge_hits per pair {hits.tolist()}; ring-visited pairs {int((hits > 0).sum())}")
     phase("720p", f"psnr avg {float(out['psnr'].mean()):.4f} min {float(out['psnr'].min()):.4f} "
           f"max {float(out['psnr'].max()):.4f}; launches {launches}")
-    check(all(n > 0 for n in launches.values()), f"a kernel of the path did not launch: {launches}")
     check(out["compensated"].shape == prev.shape and out["parameters"].shape == (BATCH_720P, 6),
           "720p: unexpected output shapes")
     check(bool(np.isfinite(params).all()) and bool(torch.isfinite(out["psnr"]).all()),
@@ -273,9 +512,24 @@ def run(torch):
         check(torch.equal(one[k][0], out[k][0].cpu()), f"720p pair 0: GPU {k} differs from the CPU run")
     phase("720p", "pair 0: GPU run == CPU plain run (integers and parameters exact)")
 
+    # Phase 10: each kernel against its plain version at every shape the
+    # counted paths gave it, on the paths' own inputs.
+    del warm, out
+    torch.cuda.empty_cache()
+    for key in sorted(captured, key=str):
+        kernel, args = key[0], [a.to(dev) if isinstance(a, torch.Tensor) else a
+                                for a in captured.pop(key)]
+        err = agree(kernel, getattr(K, kernel)(*args), plain_of[kernel](*args))
+        ms = cuda_ms(torch, lambda: getattr(K, kernel)(*args), PLAIN_REPS)
+        phase("paths", f"{kernel} {key[1:]}: bit-equal=True max_abs_err={err} "
+              f"kernel {ms:.4f} ms ({card})")
+        del args
+    for k in K.LAUNCHES:
+        check("ms" in records[k], f"{k}: no main-path shape was timed")
+
     kernels = [
         {"name": k, "route": "cuda", "source": f"gme_tpu_torch/csrc/{k}.cu",
-         "replaces": REPLACES[k], "launches": launches[k], **records[k]}
+         "replaces": REPLACES[k], "launches": launch_log[MAIN_PATH[k]][k], **records[k]}
         for k in K.LAUNCHES
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
 """Configuration of the PyTorch port.
 
-The same frozen dataclass as `gme_tpu.config.GMEConfig`: the same fields,
-defaults and `fast()`.  The system has no learned weights, so this config is
-its whole state; `GMEConfig.from_dict(dataclasses.asdict(jax_cfg))` carries
-it across from the JAX package without importing it (importing `gme_tpu`
-loads JAX).
+The same frozen dataclasses as `gme_tpu.config.BBMEConfig` and
+`gme_tpu.config.GMEConfig`: the same fields and defaults.  The
+system has no learned weights, so these configs are its whole state;
+`GMEConfig.from_dict(dataclasses.asdict(jax_cfg))` (and the same for
+`BBMEConfig`) carries one across from the JAX package without importing it
+(importing `gme_tpu` loads JAX).
 """
 
 from __future__ import annotations
@@ -32,6 +33,37 @@ SEARCH_NAMES = {
 PNORM_NAMES = {MAE: "mae", MSE: "mse"}
 
 
+def _from_dict(cls, d: dict):
+    """Build `cls` from `dataclasses.asdict()` of its `gme_tpu` namesake.
+    Unknown keys raise, so a field added on one side only is caught."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown {cls.__name__} fields: {sorted(unknown)}")
+    return cls(**d)
+
+
+@dataclass(frozen=True)
+class BBMEConfig:
+    """Block-based motion estimation parameters; field-for-field the JAX
+    package's `BBMEConfig`, whose defaults are `get_motion_field`'s
+    (reference bbme.py:12-19: block 4, window 2, three-step, MSE).
+    `search_impl` "auto" and "volume" select the volume engine on every
+    device, "gather" the gather engine (`ops/bbme.py`)."""
+
+    block_size: int = 4
+    search_window: int = 2
+    searching_procedure: int = THREESTEP
+    pnorm_distance: int = MSE
+    max_search_iters: int = 4096
+    search_impl: str = "auto"
+    volume_radius: int = 32
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BBMEConfig":
+        return _from_dict(cls, d)
+
+
 @dataclass(frozen=True)
 class GMEConfig:
     """Global-motion-estimation (affine model) parameters; field-for-field
@@ -47,8 +79,8 @@ class GMEConfig:
     searching_procedure: int = DIAMOND
     pnorm_distance: int = MSE
     max_search_iters: int = 4096
-    # "auto" and "volume" both select the volume engine on every device;
-    # the gather engine is not ported yet (ROADMAP A9).
+    # "auto" and "volume" select the volume engine on every device,
+    # "gather" the gather engine (`ops/bbme.py`).
     search_impl: str = "auto"
     volume_radius: int = 32
     dense_volume_radius: int = 16
@@ -67,10 +99,4 @@ class GMEConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "GMEConfig":
-        """Build from `dataclasses.asdict()` of a `gme_tpu` GMEConfig.
-        Unknown keys raise, so a field added on one side only is caught."""
-        names = {f.name for f in dataclasses.fields(cls)}
-        unknown = set(d) - names
-        if unknown:
-            raise ValueError(f"unknown GMEConfig fields: {sorted(unknown)}")
-        return cls(**d)
+        return _from_dict(cls, d)

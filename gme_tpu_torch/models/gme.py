@@ -46,11 +46,12 @@ def _check_frames(previous: torch.Tensor, current: torch.Tensor) -> None:
 
 
 def dense_motion_estimation(previous, current, cfg: GMEConfig = _DEFAULT):
-    """Dense init field: block-2 diamond search (reference motion.py:13-30).
-    Returns the field and its (B,) `volume_edge_hits`."""
+    """Dense init field: a block-2 search, diamond by default (reference
+    motion.py:13-30).  Returns the field and its (B,) `volume_edge_hits`."""
     field, diag = get_motion_field(
         previous, current,
         block_size=cfg.dense_block_size,
+        search_window=cfg.search_window,
         searching_procedure=cfg.searching_procedure,
         max_iters=cfg.max_search_iters,
         search_impl=cfg.search_impl,
@@ -69,6 +70,7 @@ def best_affine_parameters_robust(
     gt, diag = get_motion_field(
         previous, current,
         block_size=cfg.block_size,
+        search_window=cfg.search_window,
         searching_procedure=cfg.searching_procedure,
         max_iters=cfg.max_search_iters,
         search_impl=cfg.search_impl,

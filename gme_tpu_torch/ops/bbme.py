@@ -1,30 +1,48 @@
-"""Block-based motion estimation: the diamond search on the volume engine.
+"""Block-based motion estimation: the four searches on two engines.
 
-Counterpart of the volume-engine path of `gme_tpu/ops/bbme.py`, batched over
-a leading pair dimension B.  The volume engine precomputes the block DFD for
-every offset in [-R, R]^2 (a CUDA kernel), builds the int8 LDSP rank map
-over it (plain torch), chases each cell's walk to its fixpoint (a CUDA
-kernel) and finishes with one SDSP pass.  All DFD values are integers below
-2**24 held in float32, so every stage is bit-identical to the JAX package
-run with `search_impl="volume"`.
+Counterpart of `gme_tpu/ops/bbme.py`, batched over a leading pair dimension
+B.  Searches: exhaustive (a masked cost volume and a first-minimum argmin),
+three-step (three static 9-point rounds), 2D-log (a lockstep loop with
+per-block masks) and diamond (an LDSP walk and one SDSP pass), each with the
+reference's tie-breaking and quirks.
+
+The data-dependent searches evaluate candidates on one of two engines:
+
+- "volume": the block DFD for every offset in [-R, R]^2 as a cost volume (a
+  CUDA kernel), then lookups into it.  The diamond walk runs as an int8 LDSP
+  rank map over the volume (plain torch) chased to its fixpoint (a CUDA
+  kernel).  Walks that reach the volume's edge are counted in
+  `volume_edge_hits`.
+- "gather": the candidate blocks gathered from the frame, exact for any
+  walk length.
+
+`search_impl="auto"` is the volume engine on every device, so the CPU run
+and the card run are one function.  The JAX package's "auto" means the
+gather engine on the CPU; the two engines agree wherever `volume_edge_hits`
+is 0 (and three-step and exhaustive are exact on both).
+
+All DFD values are integer sums taken in int32 and rounded to float32 once:
+exact below 2**24 (every block size up to 16), so every stage is
+bit-identical to the JAX package.
 
 Motion-field convention (reference bbme.py:531-532): (B, H//bs, W//bs, 2)
 int32, channel 0 the column shift, channel 1 the row shift.
 
-Not ported yet: the gather engine and the exhaustive, three-step and 2D-log
-searches (ROADMAP A9), and the volume kernels for the shapes the JAX
-dispatch sends to `_cost_volume_kernel` (ROADMAP B5) or
-`_cross_volume_kernel` (ROADMAP B6).  Those raise `NotImplementedError`.
+Not ported yet: the select-chain rank map `_succ_map_select` (ROADMAP A9),
+so the volume-engine diamond walk raises at block sizes above 16, and the
+row-band volume `compute_cost_volume_band` (ROADMAP A12).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from gme_tpu_torch.config import DIAMOND, MAE, MSE
+from gme_tpu_torch.config import (
+    DIAMOND, EXHAUSTIVE, MAE, MSE, THREESTEP, TWODLOG, BBMEConfig,
+)
 from gme_tpu_torch.ops import cuda_kernels
 from gme_tpu_torch.ops.cuda_kernels import LDSP
 
@@ -32,18 +50,34 @@ _INF = float("inf")
 # SDSP offsets as the reference applies them, (row, col) swapped
 # (reference bbme.py:518-521).
 SDSP = ((0, 0), (0, 1), (1, 0), (0, -1), (-1, 0))
+# Padding candidates of the 2D-log cross pattern: far out of every frame.
+_FAR = -(2**31) // 4
+
+# An evaluator maps candidate positions (B, nbh, nbw, K, 2) and a validity
+# mask (B, nbh, nbw, K) to DFD costs (B, nbh, nbw, K), +inf where invalid.
+Evaluator = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def _check_search_impl(search_impl: str) -> None:
-    """`auto` is the volume engine on every device, so CPU and GPU runs are
-    the same function; the gather engine is not ported."""
-    if search_impl in ("auto", "volume"):
-        return
-    if search_impl == "gather":
-        raise NotImplementedError(
-            "search_impl='gather' is not ported yet (ROADMAP A9); use 'volume'"
-        )
-    raise ValueError(f"unknown search_impl {search_impl!r}")
+# ---------------------------------------------------------------------------
+# DFD primitives and geometry (JAX bbme.py:67-126)
+# ---------------------------------------------------------------------------
+
+def block_dfd(diff: torch.Tensor, pnorm: int) -> torch.Tensor:
+    """Sum of |diff| (MAE) or diff**2 (MSE) over the trailing two (block)
+    dims of an int32 difference, rounded to float32 once."""
+    if pnorm == MAE:
+        per_px = diff.abs()
+    elif pnorm == MSE:
+        per_px = diff * diff
+    else:
+        raise ValueError(f"unknown pnorm index {pnorm}")
+    return per_px.sum(dim=(-2, -1), dtype=torch.int32).to(torch.float32)
+
+
+def _block_grid(height: int, width: int, bs: int) -> Tuple[int, int]:
+    """Block rows and columns: the reference's loop count
+    (range(0, dim-(bs-1), bs) has dim//bs elements)."""
+    return height // bs, width // bs
 
 
 def _block_origins(nbh: int, nbw: int, bs: int, device) -> torch.Tensor:
@@ -53,21 +87,82 @@ def _block_origins(nbh: int, nbw: int, bs: int, device) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(bi[:, None], bj[None, :]), dim=-1)
 
 
+def _batched_origins(previous: torch.Tensor, bs: int) -> torch.Tensor:
+    """(B, nbh, nbw, 2) block origins of a (B, H, W) batch."""
+    B, H, W = previous.shape
+    nbh, nbw = _block_grid(H, W, bs)
+    return _block_origins(nbh, nbw, bs, previous.device).expand(B, nbh, nbw, 2)
+
+
+def _anchor_blocks(frame: torch.Tensor, bs: int) -> torch.Tensor:
+    """(B, nbh, nbw, bs, bs) anchor blocks of a (B, H, W) frame batch."""
+    B, H, W = frame.shape
+    nbh, nbw = _block_grid(H, W, bs)
+    x = frame[:, : nbh * bs, : nbw * bs]
+    return x.reshape(B, nbh, bs, nbw, bs).permute(0, 1, 3, 2, 4)
+
+
+def _gather_blocks(frame: torch.Tensor, pos: torch.Tensor, bs: int) -> torch.Tensor:
+    """bs x bs blocks of a (B, H, W) frame batch at in-frame top-left
+    positions pos (B, ..., 2) (row, col): (B, ..., bs, bs)."""
+    B, H, W = frame.shape
+    ar = torch.arange(bs, dtype=pos.dtype, device=pos.device)
+    rows = pos[..., 0:1] + ar
+    cols = pos[..., 1:2] + ar
+    idx = (rows[..., :, None] * W + cols[..., None, :]).long()
+    flat = frame.reshape(B, H * W).gather(1, idx.reshape(B, -1))
+    return flat.reshape(idx.shape)
+
+
+def _in_frame(pos: torch.Tensor, bs: int, H: int, W: int) -> torch.Tensor:
+    """The reference's validity test: the candidate block lies wholly inside
+    the frame (bbme.py:157-162)."""
+    return ((pos[..., 0] >= 0) & (pos[..., 1] >= 0)
+            & (pos[..., 0] + bs - 1 <= H - 1) & (pos[..., 1] + bs - 1 <= W - 1))
+
+
+# ---------------------------------------------------------------------------
+# Cost volumes
+# ---------------------------------------------------------------------------
+
+def _dfd_cost_volume_mse_decomp(prev_crop, curr_pad, bs: int, D: int) -> torch.Tensor:
+    """MSE volume as sum a^2 - 2 sum ab + sum b^2 (JAX
+    pallas_kernels.py:511): the cross term from the cross kernel, the
+    offset-independent terms in plain torch (sum b^2 by block pooling, sum a^2
+    by a sliding box sum of curr^2 read at (t*bs + dr, j*bs + dc)).  Combined
+    in int32 and rounded to float32 once; |sum a^2 - 2 sum ab| < 2**24
+    because it equals the SSD minus sum b^2, so the result is bit-equal to
+    the direct MSE volume."""
+    B, Hc, Wc = prev_crop.shape
+    nbh, nbw = Hc // bs, Wc // bs
+    dev = prev_crop.device
+    p = prev_crop.to(torch.int32)
+    sb = (p * p).reshape(B, nbh, bs, nbw, bs).sum(dim=(2, 4), dtype=torch.int32)
+    c = curr_pad.to(torch.int32)
+    c2 = c * c
+    sa_full = (c2.unfold(1, bs, 1).sum(-1, dtype=torch.int32)
+               .unfold(2, bs, 1).sum(-1, dtype=torch.int32))
+    offs = torch.arange(D, device=dev)
+    rows = (torch.arange(nbh, device=dev) * bs)[:, None] + offs  # (nbh, D)
+    cols = (torch.arange(nbw, device=dev) * bs)[:, None] + offs  # (nbw, D)
+    sa = sa_full[:, rows][:, :, :, cols]  # (B, nbh, D_dr, nbw, D_dc)
+    vol = sa.permute(0, 1, 3, 2, 4).reshape(B, nbh, nbw, D * D)
+    del sa
+    cross = cuda_kernels.cost_volume_cross(prev_crop, curr_pad, bs, D)
+    vol.sub_(cross.to(torch.int32).mul_(2)).add_(sb[..., None])
+    return vol.to(torch.float32)
+
+
 def _dfd_cost_volume(prev_crop, curr_pad, bs: int, D: int, pnorm: int):
-    """The JAX dispatch (pallas_kernels.py:622-641) over the ported kernels."""
+    """The JAX dispatch (pallas_kernels.py:622-641) over the ported kernels:
+    (B, nbh, nbw, D*D) float32, entry dr*D + dc."""
     if bs < 8 and 8 % bs == 0 and D >= 8:
         return cuda_kernels.cost_volume_small_block(prev_crop, curr_pad, bs, D, pnorm)
     if pnorm == MSE and bs >= 8 and bs * bs * 255 * 255 < 2**24 and D >= 8:
         if bs + D - 1 <= 128:
             return cuda_kernels.cost_volume_mse_block(prev_crop, curr_pad, bs, D)
-        raise NotImplementedError(
-            f"MSE volume with bs={bs}, D={D} (bs + D - 1 > 128) needs the "
-            "cross-volume kernel, not ported yet (ROADMAP B6)"
-        )
-    raise NotImplementedError(
-        f"{'MAE' if pnorm == MAE else 'MSE'} volume with bs={bs}, D={D} needs "
-        "the row-offset kernel, not ported yet (ROADMAP B5)"
-    )
+        return _dfd_cost_volume_mse_decomp(prev_crop, curr_pad, bs, D)
+    return cuda_kernels.cost_volume_rowoffset(prev_crop, curr_pad, bs, D, pnorm)
 
 
 def volume_inputs(previous: torch.Tensor, current: torch.Tensor, block_size: int,
@@ -83,6 +178,13 @@ def volume_inputs(previous: torch.Tensor, current: torch.Tensor, block_size: int
     return prev_crop, curr_pad
 
 
+def _offset_mask(n: int, bs: int, dim: int, offsets: torch.Tensor) -> torch.Tensor:
+    """(n, D) validity of each block origin along one axis moved by each
+    offset: the moved block stays inside [0, dim)."""
+    p = torch.arange(n, dtype=torch.int32, device=offsets.device)[:, None] * bs + offsets
+    return (p >= 0) & (p <= dim - bs)
+
+
 def compute_cost_volume(
     previous: torch.Tensor, current: torch.Tensor, block_size: int, radius: int,
     pnorm: int,
@@ -96,19 +198,300 @@ def compute_cost_volume(
     D = 2 * R + 1
     prev_crop, curr_pad = volume_inputs(previous, current, bs, R)
     cost = _dfd_cost_volume(prev_crop, curr_pad, bs, D, pnorm)
-
-    dev = previous.device
-    offsets = torch.arange(-R, R + 1, dtype=torch.int32, device=dev)
-    row0 = torch.arange(nbh, dtype=torch.int32, device=dev) * bs
-    col0 = torch.arange(nbw, dtype=torch.int32, device=dev) * bs
-    r = row0[:, None] + offsets[None, :]  # (nbh, D)
-    c = col0[:, None] + offsets[None, :]  # (nbw, D)
-    valid_r = (r >= 0) & (r <= H - bs)
-    valid_c = (c >= 0) & (c <= W - bs)
+    offsets = torch.arange(-R, R + 1, dtype=torch.int32, device=previous.device)
+    valid_r = _offset_mask(nbh, bs, H, offsets)
+    valid_c = _offset_mask(nbw, bs, W, offsets)
     mask = valid_r[:, None, :, None] & valid_c[None, :, None, :]  # (nbh, nbw, D, D)
     # In place: the volume is the largest tensor of the step (62.7 MB per
     # 720p pair at the dense init).
     return cost.masked_fill_(~mask.reshape(nbh, nbw, D * D), _INF)
+
+
+# ---------------------------------------------------------------------------
+# Candidate evaluators (JAX bbme.py:138-331)
+# ---------------------------------------------------------------------------
+
+def _make_gather_evaluator(previous, current, bs: int, pnorm: int) -> Evaluator:
+    """Exact evaluator: gather the candidate blocks and diff them against
+    the anchors, in int32."""
+    _, H, W = previous.shape
+    anchors = _anchor_blocks(previous, bs).to(torch.int32)[..., None, :, :]
+
+    def evaluate(pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        safe = torch.stack([pos[..., 0].clamp(0, H - bs), pos[..., 1].clamp(0, W - bs)], dim=-1)
+        blocks = _gather_blocks(current, safe, bs).to(torch.int32)
+        cost = block_dfd(blocks - anchors, pnorm)
+        return torch.where(valid, cost, _INF)
+
+    return evaluate
+
+
+def volume_evaluator(volume: torch.Tensor, origins: torch.Tensor, radius: int) -> Evaluator:
+    """Evaluator over a (B, nbh, nbw, D*D) masked volume with origins
+    (B, nbh, nbw, 2): +inf beyond `radius` of the origin."""
+    D = 2 * radius + 1
+
+    def evaluate(pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        off = pos - origins[..., None, :]
+        inside = (off[..., 0].abs() <= radius) & (off[..., 1].abs() <= radius)
+        k = (off[..., 0].clamp(-radius, radius) + radius) * D + (
+            off[..., 1].clamp(-radius, radius) + radius
+        )
+        cost = torch.gather(volume, -1, k.long())
+        return torch.where(valid & inside, cost, _INF)
+
+    return evaluate
+
+
+def _resolve_impl(search_impl: str) -> str:
+    """"auto" is the volume engine on every device (module docstring)."""
+    if search_impl == "auto":
+        return "volume"
+    if search_impl not in ("gather", "volume"):
+        raise ValueError(f"unknown search_impl {search_impl!r}")
+    return search_impl
+
+
+def _make_evaluator(previous, current, bs: int, pnorm: int, impl: str,
+                    radius: int) -> Evaluator:
+    if _resolve_impl(impl) == "volume":
+        _, H, W = previous.shape
+        # No point covering offsets larger than any in-frame displacement.
+        radius = min(radius, max(H, W))
+        volume = compute_cost_volume(previous, current, bs, radius, pnorm)
+        return volume_evaluator(volume, _batched_origins(previous, bs), radius)
+    return _make_gather_evaluator(previous, current, bs, pnorm)
+
+
+def _take_best(pos: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+    """First-minimum candidate per block (the reference's strict-< scan);
+    `torch.argmin` returns the first minimal index, so all-+inf rows give 0."""
+    k = torch.argmin(cost, dim=-1)
+    idx = k[..., None, None].expand(k.shape + (1, 2))
+    return torch.gather(pos, -2, idx)[..., 0, :]
+
+
+def _field(best: torch.Tensor, origins: torch.Tensor) -> torch.Tensor:
+    """Best absolute positions -> the (col shift, row shift) int32 field."""
+    return torch.stack(
+        [best[..., 1] - origins[..., 1], best[..., 0] - origins[..., 0]], dim=-1
+    ).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Exhaustive search (JAX bbme.py:345-418)
+# ---------------------------------------------------------------------------
+
+def exhaustive_inputs(previous: torch.Tensor, current: torch.Tensor, block_size: int,
+                      search_window: int):
+    """The volume kernels' inputs for the window range(-sw, sw + bs): offset
+    index k is offset k - sw, so curr is padded by sw at the top and left and
+    by nb*bs + sw + bs - 1 - dim at the bottom and right (JAX
+    bbme.py:382-388)."""
+    _, H, W = previous.shape
+    bs, sw = block_size, search_window
+    nbh, nbw = _block_grid(H, W, bs)
+    prev_crop = previous[:, : nbh * bs, : nbw * bs].contiguous()
+    curr_k = F.pad(current, (sw, nbw * bs + sw + bs - 1 - W,
+                             sw, nbh * bs + sw + bs - 1 - H)).contiguous()
+    return prev_crop, curr_k
+
+
+def exhaustive_search(
+    previous: torch.Tensor, current: torch.Tensor, pnorm_distance: int = MAE,
+    block_size: int = 4, search_window: int = 2,
+) -> torch.Tensor:
+    """Full scan as a masked cost volume and a first-minimum argmin.
+    Candidate offsets span range(-sw, sw + bs) on both axes (the reference's
+    asymmetric window, bbme.py:146-149); the scan runs column offset outer,
+    row offset inner, which fixes tie-breaking."""
+    _, H, W = previous.shape
+    bs, sw = block_size, search_window
+    nbh, nbw = _block_grid(H, W, bs)
+    D = 2 * sw + bs
+    vol = _dfd_cost_volume(*exhaustive_inputs(previous, current, bs, sw), bs, D, pnorm_distance)
+    cost = vol.reshape(-1, nbh, nbw, D, D).transpose(-1, -2)  # (B, nbh, nbw, D_wc, D_wr)
+    offsets = torch.arange(-sw, sw + bs, dtype=torch.int32, device=previous.device)
+    valid_r = _offset_mask(nbh, bs, H, offsets)  # (nbh, D_wr)
+    valid_c = _offset_mask(nbw, bs, W, offsets)  # (nbw, D_wc)
+    mask = valid_r[:, None, None, :] & valid_c[None, :, :, None]
+    cost = cost.masked_fill(~mask, _INF).reshape(-1, nbh, nbw, D * D)
+    k = torch.argmin(cost, dim=-1)  # first minimum == the reference's strict-< scan
+    return torch.stack([offsets[k // D], offsets[k % D]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Three-step search (JAX bbme.py:425-534)
+# ---------------------------------------------------------------------------
+
+def _nine_offsets(step: int, device) -> torch.Tensor:
+    """(9, 2) int32 (row, col) offsets in the reference's scan order,
+    window_col outer, window_row inner (bbme.py:229-231)."""
+    vals = (-step, 0, step)
+    return torch.tensor([(wr, wc) for wc in vals for wr in vals],
+                        dtype=torch.int32, device=device)
+
+
+def _threestep_steps(block_size: int, search_window: int) -> Tuple[int, int, int]:
+    """Step sizes (2sw+bs)//{3,5,10} (reference bbme.py:211-213)."""
+    n = 2 * search_window + block_size
+    return n // 3, n // 5, n // 10
+
+
+def threestep_search_radius(block_size: int, search_window: int) -> int:
+    """Exact bound on any position three-step evaluates: step 1's
+    displacement counts twice through the compounded step-3 origin."""
+    s1, s2, s3 = _threestep_steps(block_size, search_window)
+    return 2 * s1 + s2 + s3
+
+
+def threestep_walk(
+    evaluate: Evaluator, origins: torch.Tensor, H: int, W: int,
+    block_size: int, search_window: int,
+) -> torch.Tensor:
+    """The three 9-candidate rounds on (B, nbh, nbw, 2) origins, with the
+    reference's compounding step-3 origin and stale-tmp quirk
+    (bbme.py:292-301, 335-336).  Returns the (row, col) displacement."""
+    bs = block_size
+    s1, s2, s3 = _threestep_steps(bs, search_window)
+
+    def round_best(center, step):
+        offs = _nine_offsets(step, center.device)
+        pos = center[..., None, :] + offs
+        cost = evaluate(pos, _in_frame(pos, bs, H, W))
+        return offs[torch.argmin(cost, dim=-1)], torch.isfinite(cost).any(dim=-1)
+
+    best1, _ = round_best(origins, s1)  # the centre is always in frame
+    d = best1
+    origin2 = origins + d
+    best2, _ = round_best(origin2, s2)
+    d = d + best2
+    origin3 = origin2 + d  # compounds d again (bbme.py:300-301)
+    best3, any3 = round_best(origin3, s3)
+    # No step-3 candidate in frame: step 2's best is added again.
+    return d + torch.where(any3[..., None], best3, best2)
+
+
+def threestep_search(
+    previous: torch.Tensor, current: torch.Tensor, pnorm_distance: int = MAE,
+    block_size: int = 4, search_window: int = 12, search_impl: str = "auto",
+    volume_radius: int = 32,
+) -> torch.Tensor:
+    """Three shrinking 9-point rounds.  The volume radius is the exact static
+    bound, so the volume engine is exact here and `volume_radius` is unused."""
+    del volume_radius
+    _, H, W = previous.shape
+    bs, sw = block_size, search_window
+    radius = threestep_search_radius(bs, sw)
+    evaluate = _make_evaluator(previous, current, bs, pnorm_distance, search_impl, radius)
+    d = threestep_walk(evaluate, _batched_origins(previous, bs), H, W, bs, sw)
+    return torch.stack([d[..., 1], d[..., 0]], dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# 2D-log search (JAX bbme.py:541-656)
+# ---------------------------------------------------------------------------
+
+def twodlog_search(
+    previous: torch.Tensor, current: torch.Tensor, pnorm_distance: int = MAE,
+    block_size: int = 4, search_window: int = 12, max_iters: int = 4096,
+    search_impl: str = "auto", volume_radius: int = 32,
+    return_diagnostics: bool = False,
+):
+    """Cross-pattern logarithmic search as a lockstep loop over every block
+    of the batch; finished blocks are masked.  Candidate order matches the
+    reference (cross: centre, +x, -x, +y, -y, bbme.py:389-393; step 2: the
+    row-major 3x3 neighbourhood, bbme.py:396-398), so ties break alike.
+
+    `volume_edge_hits` (B,) counts the walks (volume engine only) whose
+    displacement plus step reached the volume radius max(volume_radius,
+    2*sw), where a candidate could read +inf through the radius mask; 0
+    means the field equals the unbounded gather engine's."""
+    B, H, W = previous.shape
+    bs, sw = block_size, search_window
+    radius = max(volume_radius, 2 * sw)
+    volume_engine = _resolve_impl(search_impl) == "volume"
+    evaluate = _make_evaluator(previous, current, bs, pnorm_distance, search_impl, radius)
+    origins = _batched_origins(previous, bs)
+    dev = previous.device
+
+    x, y = origins[..., 0].clone(), origins[..., 1].clone()
+    dx, dy = torch.zeros_like(x), torch.zeros_like(y)
+    step = torch.full_like(x, sw)
+    touched = torch.zeros(x.shape, dtype=torch.bool, device=dev)
+    neigh9 = torch.tensor([(r, c) for r in (-2, 0, 2) for c in (-2, 0, 2)],
+                          dtype=torch.int32, device=dev)
+    far = torch.full(x.shape + (4, 2), _FAR, dtype=torch.int32, device=dev)
+
+    it = 0
+    while it < max_iters and bool((step > 1).any()):
+        zero = torch.zeros_like(step)
+        cross = torch.stack([torch.stack(v, dim=-1) for v in (
+            (zero, zero), (step, zero), (-step, zero), (zero, step), (zero, -step))], dim=-2)
+        offs = torch.where((step == 2)[..., None, None], neigh9,
+                           torch.cat([cross, far], dim=-2))
+        pos = torch.stack([x, y], dim=-1)[..., None, :] + offs
+        best = _take_best(pos, evaluate(pos, _in_frame(pos, bs, H, W)))
+        ndx, ndy = best[..., 0], best[..., 1]
+        halve = ((ndx == x) & (ndy == y)) | (step == 2)
+        nstep = torch.where(halve, step // 2, step)
+        active = step > 1
+        disp = torch.maximum((x - origins[..., 0]).abs(), (y - origins[..., 1]).abs())
+        touched |= active & (disp + step > radius)
+        x = torch.where(active, ndx, x)
+        y = torch.where(active, ndy, y)
+        dx = torch.where(active, ndx, dx)
+        dy = torch.where(active, ndy, dy)
+        step = torch.where(active, nstep, step)
+        it += 1
+    # Reference bbme.py:430-431: channel 1 = dx - block_row, 0 = dy - block_col.
+    field = _field(torch.stack([dx, dy], dim=-1), origins)
+    if return_diagnostics:
+        if volume_engine:
+            hits = touched.reshape(B, -1).sum(dim=1, dtype=torch.int32)
+        else:  # gather-engine walks are unbounded
+            hits = torch.zeros(B, dtype=torch.int32, device=dev)
+        return field, {"volume_edge_hits": hits}
+    return field
+
+
+# ---------------------------------------------------------------------------
+# Diamond search (JAX bbme.py:663-1158)
+# ---------------------------------------------------------------------------
+
+def _clamped(pos: torch.Tensor, H: int, W: int, bs: int) -> torch.Tensor:
+    """Positions clamped to [0, dim - bs - 1], the reference's off-by-one
+    clamp (bbme.py:503-504, 522-523)."""
+    return torch.stack([pos[..., 0].clamp(0, H - bs - 1), pos[..., 1].clamp(0, W - bs - 1)],
+                       dim=-1)
+
+
+def diamond_walk(
+    evaluate: Evaluator, origins: torch.Tensor, H: int, W: int,
+    block_size: int, max_iters: int = 4096,
+) -> torch.Tensor:
+    """The gather-engine diamond walk: LDSP steps in lockstep until every
+    block's centre wins, then one SDSP pass (JAX bbme.py:672-715).  Returns
+    the best absolute positions, shaped like `origins`."""
+    dev = origins.device
+    ldsp = torch.tensor(LDSP, dtype=torch.int32, device=dev)
+    sdsp = torch.tensor(SDSP, dtype=torch.int32, device=dev)
+
+    def eval_at(offsets, match):
+        pos = _clamped(match[..., None, :] + offsets, H, W, block_size)
+        return _take_best(pos, evaluate(pos, torch.ones(pos.shape[:-1], dtype=torch.bool,
+                                                        device=dev)))
+
+    match = origins
+    done = torch.zeros(origins.shape[:-1], dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iters and not bool(done.all()):
+        best = eval_at(ldsp, match)
+        ndone = done | (best == match).all(dim=-1)
+        match = torch.where(done[..., None], match, best)
+        done = ndone
+        it += 1
+    return eval_at(sdsp, match)
 
 
 def _succ_map_packed(
@@ -175,8 +558,8 @@ def diamond_walk_volume(
     D = 2 * R + 1
     if bs * bs * 255 * 255 >= 2**24:
         raise NotImplementedError(
-            f"diamond search at bs={bs} > 16 needs the select-chain rank map, "
-            "not ported yet (ROADMAP A9)"
+            f"volume-engine diamond search at bs={bs} > 16 needs the select-chain "
+            "rank map, not ported yet (ROADMAP A9); search_impl='gather' takes it"
         )
     lead = volume.shape[:-1]
     B = lead[0]
@@ -195,81 +578,86 @@ def diamond_walk_volume(
 
     # Single SDSP pass (reference bbme.py:515-529) through the volume.
     sdsp = torch.tensor(SDSP, dtype=torch.int32, device=volume.device)
-    pos = match[..., None, :] + sdsp  # (B, nbh, nbw, 5, 2)
-    pos = torch.stack(
-        [pos[..., 0].clamp(0, H - bs - 1), pos[..., 1].clamp(0, W - bs - 1)], dim=-1
-    )
-    cost = volume_evaluator(volume, og, R)(pos)
+    pos = _clamped(match[..., None, :] + sdsp, H, W, bs)
+    cost = volume_evaluator(volume, og, R)(pos, torch.ones(pos.shape[:-1], dtype=torch.bool,
+                                                             device=volume.device))
     return _take_best(pos, cost), edge_hits
-
-
-def volume_evaluator(volume: torch.Tensor, origins: torch.Tensor, radius: int):
-    """Evaluator over a (..., D*D) masked volume: candidate positions
-    (..., K, 2) -> costs (..., K), +inf beyond `radius` of the origin."""
-    D = 2 * radius + 1
-
-    def evaluate(pos: torch.Tensor) -> torch.Tensor:
-        off = pos - origins[..., None, :]
-        inside = (off[..., 0].abs() <= radius) & (off[..., 1].abs() <= radius)
-        k = (off[..., 0].clamp(-radius, radius) + radius) * D + (
-            off[..., 1].clamp(-radius, radius) + radius
-        )
-        cost = torch.gather(volume, -1, k.long())
-        return torch.where(inside, cost, _INF)
-
-    return evaluate
-
-
-def _take_best(pos: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
-    """First-minimum candidate per block (the reference's strict-< scan);
-    `torch.argmin` returns the first minimal index, so all-+inf rows give 0."""
-    k = torch.argmin(cost, dim=-1)
-    idx = k[..., None, None].expand(k.shape + (1, 2))
-    return torch.gather(pos, -2, idx)[..., 0, :]
 
 
 def diamond_search(
     previous: torch.Tensor, current: torch.Tensor, pnorm_distance: int = MAE,
-    block_size: int = 12, max_iters: int = 4096, search_impl: str = "auto",
-    volume_radius: int = 32,
-):
-    """Large-diamond walk until the centre wins, then one small-diamond pass
-    (reference bbme.py:436-534), on the volume engine.  Candidate positions
-    are clamped to [0, dim - bs - 1] as the reference does.  Returns the
-    (B, nbh, nbw, 2) int32 field and the (B,) int32 `volume_edge_hits`."""
-    _check_search_impl(search_impl)
-    _, H, W = previous.shape
-    bs = block_size
-    nbh, nbw = H // bs, W // bs
-    origins = _block_origins(nbh, nbw, bs, previous.device)
-    radius = min(volume_radius, max(H, W))
-    volume = compute_cost_volume(previous, current, bs, radius, pnorm_distance)
-    best, edge_hits = diamond_walk_volume(volume, origins, H, W, bs, radius, max_iters)
-    field = torch.stack(
-        [best[..., 1] - origins[..., 1], best[..., 0] - origins[..., 0]], dim=-1
-    ).to(torch.int32)
-    return field, edge_hits
-
-
-def get_motion_field(
-    previous: torch.Tensor, current: torch.Tensor, block_size: int = 4,
-    searching_procedure: int = DIAMOND, pnorm_distance: int = MSE,
-    max_iters: int = 4096, search_impl: str = "auto", volume_radius: int = 32,
+    block_size: int = 12, search_window: int = -1, max_iters: int = 4096,
+    search_impl: str = "auto", volume_radius: int = 32,
     return_diagnostics: bool = False,
 ):
-    """(B, H//bs, W//bs, 2) int32 motion field between (B, H, W) uint8
-    frame batches; with `return_diagnostics` also
-    `{"volume_edge_hits": (B,) int32}`.  Only the diamond search is ported
-    (ROADMAP A9 has the others)."""
-    if searching_procedure != DIAMOND:
-        raise NotImplementedError(
-            f"searching procedure {searching_procedure} is not ported yet "
-            "(ROADMAP A9); only DIAMOND (3) is"
-        )
-    field, edge_hits = diamond_search(
-        previous, current, pnorm_distance, block_size, max_iters, search_impl,
-        volume_radius,
-    )
+    """Large-diamond walk until the centre wins, then one small-diamond pass
+    (reference bbme.py:436-534).  Candidate positions are clamped to
+    [0, dim - bs - 1] as the reference does.  `search_window` is accepted and
+    ignored, as the reference ignores it.  With `return_diagnostics` also
+    `{"volume_edge_hits": (B,) int32}` (0 on the unbounded gather engine)."""
+    del search_window
+    B, H, W = previous.shape
+    bs = block_size
+    origins = _batched_origins(previous, bs)
+    if _resolve_impl(search_impl) == "volume":
+        radius = min(volume_radius, max(H, W))
+        volume = compute_cost_volume(previous, current, bs, radius, pnorm_distance)
+        best, edge_hits = diamond_walk_volume(volume, origins, H, W, bs, radius, max_iters)
+    else:
+        evaluate = _make_gather_evaluator(previous, current, bs, pnorm_distance)
+        best = diamond_walk(evaluate, origins, H, W, bs, max_iters)
+        edge_hits = torch.zeros(B, dtype=torch.int32, device=previous.device)
+    field = _field(best, origins)
     if return_diagnostics:
         return field, {"volume_edge_hits": edge_hits}
     return field
+
+
+# ---------------------------------------------------------------------------
+# Dispatch (JAX bbme.py:1165-1276, reference bbme.py:12-38, 608-614)
+# ---------------------------------------------------------------------------
+
+def get_motion_field(
+    previous: torch.Tensor, current: torch.Tensor, block_size: int = 4,
+    search_window: int = 2, searching_procedure: int = THREESTEP,
+    pnorm_distance: int = MSE, max_iters: int = 4096, search_impl: str = "auto",
+    volume_radius: int = 32, return_diagnostics: bool = False,
+):
+    """(B, H//bs, W//bs, 2) int32 motion field between (B, H, W) uint8 frame
+    batches.  Signature and defaults are the JAX package's (reference
+    bbme.py:12-19); procedures {0: exhaustive, 1: three-step, 2: 2D-log,
+    3: diamond}.  With `return_diagnostics` also
+    `{"volume_edge_hits": (B,) int32}`: the volume-engine diamond and 2D-log
+    walks a larger radius could have changed; 0 for exhaustive and
+    three-step, whose displacement is statically bounded."""
+    _resolve_impl(search_impl)
+    diag = None
+    if searching_procedure == EXHAUSTIVE:
+        field = exhaustive_search(previous, current, pnorm_distance, block_size, search_window)
+    elif searching_procedure == THREESTEP:
+        field = threestep_search(previous, current, pnorm_distance, block_size,
+                                 search_window, search_impl)
+    elif searching_procedure == TWODLOG:
+        field, diag = twodlog_search(previous, current, pnorm_distance, block_size,
+                                     search_window, max_iters, search_impl, volume_radius,
+                                     return_diagnostics=True)
+    elif searching_procedure == DIAMOND:
+        field, diag = diamond_search(previous, current, pnorm_distance, block_size,
+                                     search_window, max_iters, search_impl, volume_radius,
+                                     return_diagnostics=True)
+    else:
+        raise ValueError(f"unknown searching procedure {searching_procedure}")
+    if not return_diagnostics:
+        return field
+    if diag is None:
+        diag = {"volume_edge_hits": torch.zeros(previous.shape[0], dtype=torch.int32,
+                                                device=previous.device)}
+    return field, diag
+
+
+def get_motion_field_cfg(previous: torch.Tensor, current: torch.Tensor, cfg: BBMEConfig):
+    """`get_motion_field` with every parameter from a `BBMEConfig`."""
+    return get_motion_field(
+        previous, current, cfg.block_size, cfg.search_window, cfg.searching_procedure,
+        cfg.pnorm_distance, cfg.max_search_iters, cfg.search_impl, cfg.volume_radius,
+    )

@@ -1,16 +1,18 @@
-"""The port's four hand-written Hopper kernels: build, binding, wrappers and
+"""The port's six hand-written Hopper kernels: build, binding, wrappers and
 their plain PyTorch versions.
 
-Counterpart of `gme_tpu/ops/pallas_kernels.py`.  Each Pallas kernel on the
-main path has a CUDA C++ kernel under `gme_tpu_torch/csrc/` (the source
-note at the top of each `.cu` file says what bounds it on the H100 and how
-its design answers that):
+Counterpart of `gme_tpu/ops/pallas_kernels.py`.  Each Pallas kernel has a
+CUDA C++ kernel under `gme_tpu_torch/csrc/` (the source note at the top of
+each `.cu` file says what bounds it on the H100 and how its design answers
+that):
 
 =========================  ==========================  ======================
 wrapper                    replaces (pallas_kernels)   source
 =========================  ==========================  ======================
 cost_volume_small_block    _planes_kernel              cost_volume_small_block.cu
 cost_volume_mse_block      _hankel_mse_kernel          cost_volume_mse_block.cu
+cost_volume_rowoffset      _cost_volume_kernel         cost_volume_rowoffset.cu
+cost_volume_cross          _cross_volume_kernel        cost_volume_cross.cu
 chase_fixpoint             _chase_kernel               chase_fixpoint.cu
 warp_block_field           _warp_kernel                warp_block_field.cu
 =========================  ==========================  ======================
@@ -23,9 +25,10 @@ check device, dtype, shape and contiguity, allocate outputs with
 `LAUNCHES[name]` counts the kernel's launches (and nothing else), so a run
 can show that it went through the kernels.
 
-The sources build at first use with nvcc into one shared library with a
-plain C interface (`gme_tpu_torch/_build/`, keyed by a hash of the sources
-and flags), loaded with ctypes.
+The sources build at first use with nvcc, one compiler process per source,
+all started together, linked into one shared library with a plain C
+interface (`gme_tpu_torch/_build/`, keyed by a hash of the sources and
+flags) and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -49,19 +52,23 @@ _DEFAULT_CUDA_HOME = "/usr/local/cuda"
 _SOURCES = (
     "cost_volume_small_block.cu",
     "cost_volume_mse_block.cu",
+    "cost_volume_rowoffset.cu",
+    "cost_volume_cross.cu",
     "chase_fixpoint.cu",
     "warp_block_field.cu",
     "errors.cu",
 )
-_HEADERS = ("gme_kernels.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+_HEADERS = ("gme_kernels.cuh", "cost_volume_tiles.cuh")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = _ARCH + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES = {
     "cost_volume_small_block": 0,
     "cost_volume_mse_block": 0,
+    "cost_volume_rowoffset": 0,
+    "cost_volume_cross": 0,
     "chase_fixpoint": 0,
     "warp_block_field": 0,
 }
@@ -108,26 +115,44 @@ def _source_key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands side by side; (returncode, output) of each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 def build(force: bool = False) -> BuildResult:
     """Compile the kernels into `_build/libgme_kernels_<hash>.so` unless
-    that library exists (or `force`).  Raises on any failure."""
-    path = os.path.join(_BUILD_DIR, f"libgme_kernels_{_source_key()}.so")
+    that library exists (or `force`): one nvcc per source, all at once,
+    then one link.  Raises on any failure."""
+    key = _source_key()
+    path = os.path.join(_BUILD_DIR, f"libgme_kernels_{key}.so")
     if os.path.exists(path) and not force:
         return BuildResult(path, "", 0.0)
     nvcc = find_nvcc()
     os.makedirs(_BUILD_DIR, exist_ok=True)
+    tag = f"{key}.{os.getpid()}"
+    objs = [os.path.join(_BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o") for s in _SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC_DIR, s), "-o", o]
+                for s, o in zip(_SOURCES, objs)]
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp] + [
-        os.path.join(_CSRC_DIR, s) for s in _SOURCES
-    ]
+    link = [nvcc, *_ARCH, "-shared", "-o", tmp, *objs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log = ""
+    try:
+        for cmds in (compiles, [link]):  # the link starts once every object is built
+            for cmd, (rc, out) in zip(cmds, _run_all(cmds)):
+                log += out
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, path)
-    return BuildResult(path, log, seconds)
+    return BuildResult(path, log, time.perf_counter() - t0)
 
 
 def load_library() -> ctypes.CDLL:
@@ -138,9 +163,12 @@ def load_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gme_cost_volume_small_block.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.gme_cost_volume_mse_block.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.gme_cost_volume_rowoffset.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.gme_cost_volume_cross.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.gme_chase_fixpoint.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gme_warp_block_field.argtypes = [p, p, p, i, i, i, i, i, i, p]
         for fn in (lib.gme_cost_volume_small_block, lib.gme_cost_volume_mse_block,
+                   lib.gme_cost_volume_rowoffset, lib.gme_cost_volume_cross,
                    lib.gme_chase_fixpoint, lib.gme_warp_block_field):
             fn.restype = ctypes.c_int
         lib.gme_error_string.argtypes = [ctypes.c_int]
@@ -207,25 +235,53 @@ def _check_volume_inputs(prev_crop, curr_pad, bs: int, D: int):
 # Cost volumes
 # ---------------------------------------------------------------------------
 
+# Largest block edge whose sums stay below 2**31 in the volume kernels'
+# int32 accumulators: MAE 255 * bs**2, MSE and cross 255**2 * bs**2.
+MAX_BS = {MAE: 2901, MSE: 181}
+
+
+def _volume_plain(prev_crop, curr_pad, bs: int, D: int, term) -> torch.Tensor:
+    """(B, nbh, nbw, D*D) float32 block sums of term(curr, prev) in int32,
+    rounded to float32 once.  One row offset at a time, all column offsets of
+    it at once (a (B, Hc, D, Wc) tensor)."""
+    B, Hc, Wc = prev_crop.shape
+    nbh, nbw = Hc // bs, Wc // bs
+    prev = prev_crop.to(torch.int32)[:, :, None, :]
+    curr = curr_pad.to(torch.int32)
+    out = torch.empty((B, nbh, nbw, D, D), dtype=torch.float32, device=prev.device)
+    for dr in range(D):
+        per_px = term(curr[:, dr:dr + Hc, :].unfold(2, Wc, 1), prev)  # (B, Hc, D, Wc)
+        sums = per_px.reshape(B, nbh, bs, D, nbw, bs).sum(dim=(2, 5), dtype=torch.int32)
+        out[:, :, :, dr, :] = sums.permute(0, 1, 3, 2)
+    return out.reshape(B, nbh, nbw, D * D)
+
+
+def _abs_diff(a, b):
+    return (a - b).abs_()
+
+
+def _sq_diff(a, b):
+    d = a - b
+    return d.mul_(d)
+
+
 def cost_volume_plain(
     prev_crop: torch.Tensor, curr_pad: torch.Tensor, bs: int, D: int, pnorm: int
 ) -> torch.Tensor:
-    """Plain version of both volume kernels: (B, nbh, nbw, D*D) float32,
-    entry dr*D + dc = block MAE/MSE of prev against
-    curr_pad[dr:dr+Hc, dc:dc+Wc].  One row offset at a time, all column
-    offsets of it at once (a (B, Hc, D, Wc) tensor).  Exact in float32:
-    every term and block sum is an integer below 2**24."""
-    B, Hc, Wc = prev_crop.shape
-    nbh, nbw = Hc // bs, Wc // bs
-    prev = prev_crop.to(torch.float32)[:, :, None, :]
-    curr = curr_pad.to(torch.float32)
-    out = torch.empty((B, nbh, nbw, D, D), dtype=torch.float32, device=prev.device)
-    for dr in range(D):
-        diff = curr[:, dr:dr + Hc, :].unfold(2, Wc, 1) - prev  # (B, Hc, D, Wc)
-        per_px = diff.abs_() if pnorm == MAE else diff.mul_(diff)
-        sums = per_px.reshape(B, nbh, bs, D, nbw, bs).sum(dim=(2, 5))
-        out[:, :, :, dr, :] = sums.permute(0, 1, 3, 2)
-    return out.reshape(B, nbh, nbw, D * D)
+    """Plain version of the MAE/MSE volume kernels: (B, nbh, nbw, D*D)
+    float32, entry dr*D + dc = block MAE/MSE of prev against
+    curr_pad[dr:dr+Hc, dc:dc+Wc].  Exact integer sums rounded to float32
+    once: exact wherever the sum is below 2**24 (MAE to bs 256, MSE to
+    bs 16), the correctly rounded sum above."""
+    return _volume_plain(prev_crop, curr_pad, bs, D, _abs_diff if pnorm == MAE else _sq_diff)
+
+
+def cost_volume_cross_plain(
+    prev_crop: torch.Tensor, curr_pad: torch.Tensor, bs: int, D: int
+) -> torch.Tensor:
+    """Plain version of the cross kernel: entry dr*D + dc = block sum of
+    prev * curr_pad[dr:dr+Hc, dc:dc+Wc], the same layout and rounding."""
+    return _volume_plain(prev_crop, curr_pad, bs, D, torch.mul)
 
 
 def cost_volume_small_block(
@@ -269,6 +325,62 @@ def cost_volume_mse_block(
     if out.numel():
         Hc, Wc = prev_crop.shape[1:]
         _launch("cost_volume_mse_block", load_library().gme_cost_volume_mse_block,
+                prev_crop.device, _ptr(prev_crop), _ptr(curr_pad), _ptr(out),
+                B, Hc, Wc, bs, D)
+    return out
+
+
+def _check_block_sum(bs: int, pnorm: int, D: int) -> None:
+    if bs < 1 or D < 1:
+        raise ValueError(f"block size and offsets must be positive; got bs={bs}, D={D}")
+    if bs > MAX_BS[pnorm]:
+        raise ValueError(
+            f"bs={bs} > {MAX_BS[pnorm]}: the {'MAE' if pnorm == MAE else 'MSE'} block "
+            "sums could overflow the kernel's int32 accumulators")
+
+
+def cost_volume_rowoffset(
+    prev_crop: torch.Tensor, curr_pad: torch.Tensor, bs: int, D: int, pnorm: int
+) -> torch.Tensor:
+    """(B, nbh, nbw, D*D) float32 MAE/MSE volume for any bs and any D
+    (MAE to bs 2901, MSE to bs 181) from uint8 (B, Hc, Wc) prev and
+    (B, Hc+D-1, Wc+D-1) curr_pad.
+
+    Replaces pallas_kernels.py:_cost_volume_kernel; integer-op bound at large
+    bs and output bound at small bs on the H100, offset-tiled
+    (see csrc/cost_volume_rowoffset.cu)."""
+    if pnorm not in (MAE, MSE):
+        raise ValueError(f"unknown pnorm index {pnorm}")
+    _check_block_sum(bs, pnorm, D)
+    B, nbh, nbw = _check_volume_inputs(prev_crop, curr_pad, bs, D)
+    if _on_cpu(prev_crop, curr_pad):
+        return cost_volume_plain(prev_crop, curr_pad, bs, D, pnorm)
+    out = torch.empty((B, nbh, nbw, D * D), dtype=torch.float32, device=prev_crop.device)
+    if out.numel():
+        Hc, Wc = prev_crop.shape[1:]
+        _launch("cost_volume_rowoffset", load_library().gme_cost_volume_rowoffset,
+                prev_crop.device, _ptr(prev_crop), _ptr(curr_pad), _ptr(out),
+                B, Hc, Wc, bs, D, pnorm)
+    return out
+
+
+def cost_volume_cross(
+    prev_crop: torch.Tensor, curr_pad: torch.Tensor, bs: int, D: int
+) -> torch.Tensor:
+    """(B, nbh, nbw, D*D) float32 block cross-correlation: entry dr*D + dc is
+    the block sum of prev * curr_pad[dr:dr+Hc, dc:dc+Wc], for any D and
+    bs <= 181; exact to bs 16.
+
+    Replaces pallas_kernels.py:_cross_volume_kernel; integer-op bound on the
+    H100, offset-tiled (see csrc/cost_volume_cross.cu)."""
+    _check_block_sum(bs, MSE, D)
+    B, nbh, nbw = _check_volume_inputs(prev_crop, curr_pad, bs, D)
+    if _on_cpu(prev_crop, curr_pad):
+        return cost_volume_cross_plain(prev_crop, curr_pad, bs, D)
+    out = torch.empty((B, nbh, nbw, D * D), dtype=torch.float32, device=prev_crop.device)
+    if out.numel():
+        Hc, Wc = prev_crop.shape[1:]
+        _launch("cost_volume_cross", load_library().gme_cost_volume_cross,
                 prev_crop.device, _ptr(prev_crop), _ptr(curr_pad), _ptr(out),
                 B, Hc, Wc, bs, D)
     return out

@@ -14,10 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from gme_tpu_torch.config import MAE, MSE, GMEConfig
+from gme_tpu_torch.config import DIAMOND, MAE, MSE, GMEConfig
 from gme_tpu_torch.models.gme import gme_pipeline_batch
+from gme_tpu_torch.models.hierarchical_bbme import hierarchical_wrapper
 from gme_tpu_torch.ops import bbme
 from gme_tpu_torch.ops import cuda_kernels as K
+
+DEFAULT_PATH_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block",
+                        "chase_fixpoint", "warp_block_field")
 
 pytestmark = pytest.mark.gpu
 
@@ -67,6 +71,49 @@ def test_cost_volume_largest_block_sum(cuda):
     assert float(got.max()) == 16 * 16 * 255 ** 2
 
 
+# (bs, Hc, Wc, D): bs 1, odd bs, D < 8, D over several 16-offset tiles with
+# a ragged last tile, MSE bs 20 (sums above 2**24), partial cell tiles.
+ROWOFFSET_SHAPES = [
+    (1, 9, 17, 5), (3, 21, 33, 7), (2, 36, 64, 6), (12, 48, 84, 51),
+    (8, 40, 56, 9), (5, 25, 45, 37), (20, 40, 60, 21), (16, 32, 48, 3),
+]
+
+
+@pytest.mark.parametrize("pnorm", [MAE, MSE])
+@pytest.mark.parametrize("bs,Hc,Wc,D", ROWOFFSET_SHAPES)
+def test_cost_volume_rowoffset(cuda, pnorm, bs, Hc, Wc, D):
+    rng = np.random.RandomState(bs * 1000 + D)
+    prev, cpad = _u8(rng, 3, Hc, Wc), _u8(rng, 3, Hc + D - 1, Wc + D - 1)
+    want = K.cost_volume_plain(prev, cpad, bs, D, pnorm)
+    got = K.cost_volume_rowoffset(prev.to(cuda), cpad.to(cuda), bs, D, pnorm)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bs,Hc,Wc,D", [
+    (16, 32, 48, 115), (16, 48, 64, 129), (8, 24, 40, 125), (1, 7, 9, 4), (20, 40, 40, 17),
+])
+def test_cost_volume_cross(cuda, bs, Hc, Wc, D):
+    rng = np.random.RandomState(bs * 1000 + D)
+    prev, cpad = _u8(rng, 2, Hc, Wc), _u8(rng, 2, Hc + D - 1, Wc + D - 1)
+    want = K.cost_volume_cross_plain(prev, cpad, bs, D)
+    got = K.cost_volume_cross(prev.to(cuda), cpad.to(cuda), bs, D)
+    assert torch.equal(got.cpu(), want)
+    if bs <= 16:  # the decomposed MSE equals the direct one
+        direct = K.cost_volume_plain(prev, cpad, bs, D, MSE)
+        decomp = bbme._dfd_cost_volume_mse_decomp(prev.to(cuda), cpad.to(cuda), bs, D)
+        assert torch.equal(decomp.cpu(), direct)
+
+
+def test_cost_volume_rowoffset_largest_block_sum(cuda):
+    """The largest MSE block the int32 sums take, bs 181, in one tile."""
+    bs, D = 181, 2
+    prev = torch.zeros((1, bs, bs), dtype=torch.uint8)
+    cpad = torch.full((1, bs + D - 1, bs + D - 1), 255, dtype=torch.uint8)
+    got = K.cost_volume_rowoffset(prev.to(cuda), cpad.to(cuda), bs, D, MSE)
+    want = K.cost_volume_plain(prev, cpad, bs, D, MSE)
+    assert torch.equal(got.cpu(), want) and float(want.max()) == float(np.float32(bs * bs * 255 ** 2))
+
+
 @pytest.mark.parametrize("H,W,bs,R,shift", [(48, 64, 8, 5, 9), (60, 80, 2, 16, 3), (64, 96, 16, 32, 20)])
 def test_chase_fixpoint(cuda, H, W, bs, R, shift):
     rng = np.random.RandomState(shift)
@@ -109,9 +156,53 @@ def test_launch_counts_and_pipeline_equal_cpu(cuda):
     want = gme_pipeline_batch(torch.from_numpy(prev), torch.from_numpy(curr), cfg)
     K.reset_launch_counts()
     got = gme_pipeline_batch(torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda), cfg)
-    assert all(n > 0 for n in K.LAUNCHES.values()), K.LAUNCHES
+    assert all(K.LAUNCHES[n] > 0 for n in DEFAULT_PATH_KERNELS), K.LAUNCHES
     for k in want:
         if k == "psnr":  # a float32 mean over > 2**24: reduction order moves the last bits
             torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-4)
         else:
             assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def _pan_pair(seed, H, W, shift):
+    rng = np.random.RandomState(seed)
+    low = rng.randint(0, 256, (2, H // 4 + 1, W // 4 + 1)).astype(np.float32)
+    img = np.kron(low, np.ones((1, 4, 4), np.float32))[:, :H, :W].astype(np.uint8)
+    return torch.from_numpy(img), torch.from_numpy(np.roll(img, shift, (1, 2)).copy())
+
+
+@pytest.mark.parametrize("sp,pnorm,impl", [
+    (0, MAE, "auto"), (1, MAE, "volume"), (1, MSE, "gather"), (2, MAE, "volume"),
+    (2, MSE, "gather"), (3, MAE, "volume"), (3, MSE, "gather"),
+])
+def test_get_motion_field_equals_cpu(cuda, sp, pnorm, impl):
+    prev, curr = _pan_pair(sp, 72, 120, (3, -5))
+    kw = dict(block_size=12, search_window=8, searching_procedure=sp, pnorm_distance=pnorm,
+              search_impl=impl, return_diagnostics=True)
+    want, wd = bbme.get_motion_field(prev, curr, **kw)
+    got, gd = bbme.get_motion_field(prev.to(cuda), curr.to(cuda), **kw)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(gd["volume_edge_hits"].cpu(), wd["volume_edge_hits"])
+
+
+@pytest.mark.parametrize("cfg", [
+    GMEConfig(searching_procedure=0), GMEConfig(searching_procedure=1),
+    GMEConfig(searching_procedure=2), GMEConfig(volume_radius=64),
+    GMEConfig(dense_volume_radius=3),
+])
+def test_pipeline_configs_equal_cpu(cuda, cfg):
+    prev, curr = _pan_pair(1, 100, 150, (4, -6))
+    want = gme_pipeline_batch(prev, curr, cfg)
+    got = gme_pipeline_batch(prev.to(cuda), curr.to(cuda), cfg)
+    for k in want:
+        if k == "psnr":
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-4)
+        else:
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_hierarchical_wrapper_equals_cpu(cuda):
+    prev, curr = _pan_pair(2, 100, 96, (2, 3))
+    want = hierarchical_wrapper(prev, curr, searching_procedure=DIAMOND)
+    got = hierarchical_wrapper(prev.to(cuda), curr.to(cuda), searching_procedure=DIAMOND)
+    assert torch.equal(got.cpu(), want)

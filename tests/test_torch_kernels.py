@@ -143,28 +143,79 @@ def test_warp_block_field_batched(rng):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _pallas_rowoffset(prev, cpad, bs, D, pnorm, cross=False):
+    """(nbh, nbw, D*D): `_dfd_cost_volume_rowoffset` in interpret mode in
+    the port's layout."""
+    vol = np.asarray(pk._dfd_cost_volume_rowoffset(
+        jnp.asarray(prev, jnp.float32), jnp.asarray(cpad, jnp.float32), bs, D, pnorm,
+        True, cross=cross))
+    return vol.transpose(2, 3, 0, 1).reshape(vol.shape[2], vol.shape[3], D * D)
+
+
 @pytest.mark.parametrize("pnorm,bs,Hc,Wc,D", [
     (MAE, 16, 32, 48, 9),   # MAE at bs >= 8: row-offset kernel
     (MSE, 4, 24, 24, 7),    # D < 8: row-offset kernel
     (MAE, 8, 32, 40, 9),
 ])
-def test_rowoffset_shapes_raise(pnorm, bs, Hc, Wc, D):
-    """Shapes the JAX dispatch sends to `_cost_volume_kernel` (ROADMAP B5)
-    raise instead of running a kernel the port does not have."""
-    prev = torch.zeros((1, Hc, Wc), dtype=torch.uint8)
-    cpad = torch.zeros((1, Hc + D - 1, Wc + D - 1), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="B5"):
-        tbbme._dfd_cost_volume(prev, cpad, bs, D, pnorm)
+def test_rowoffset_shapes_raise(rng, pnorm, bs, Hc, Wc, D):
+    """Shapes the JAX dispatch sends to `_cost_volume_kernel` (the name is
+    the raise these shapes met before they had a kernel): the port's
+    dispatch and `cost_volume_rowoffset` (its plain version here) equal the
+    Pallas kernel in interpret mode."""
+    prev, cpad = _volume_case(rng, bs, Hc, Wc, D)
+    want = _pallas_rowoffset(prev, cpad, bs, D, pnorm)
+    p, c = torch.from_numpy(prev)[None], torch.from_numpy(cpad)[None]
+    np.testing.assert_array_equal(K.cost_volume_rowoffset(p, c, bs, D, pnorm)[0].numpy(), want)
+    np.testing.assert_array_equal(tbbme._dfd_cost_volume(p, c, bs, D, pnorm)[0].numpy(), want)
 
 
-def test_cross_volume_shapes_raise():
-    """MSE at bs=16 with bs + D - 1 > 128 (R >= 57) needs
-    `_cross_volume_kernel` (ROADMAP B6)."""
-    bs, D = 16, 115
-    prev = torch.zeros((1, 32, 32), dtype=torch.uint8)
-    cpad = torch.zeros((1, 32 + D - 1, 32 + D - 1), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="B6"):
-        tbbme._dfd_cost_volume(prev, cpad, bs, D, MSE)
+@pytest.mark.parametrize("pnorm,bs,Hc,Wc,D", [
+    (MAE, 12, 24, 36, 5), (MSE, 2, 8, 12, 5), (MAE, 3, 9, 12, 6), (MSE, 3, 9, 12, 6),
+])
+def test_cost_volume_rowoffset_matches_cost_volume_kernel(rng, pnorm, bs, Hc, Wc, D):
+    """MAE at bs 12 (the BBME command line's default), bs 2 with D < 8 (the
+    exhaustive dense init), and bs 3, which does not divide 8."""
+    prev, cpad = _volume_case(rng, bs, Hc, Wc, D)
+    got = K.cost_volume_rowoffset(torch.from_numpy(prev)[None], torch.from_numpy(cpad)[None],
+                                  bs, D, pnorm)
+    np.testing.assert_array_equal(got[0].numpy(), _pallas_rowoffset(prev, cpad, bs, D, pnorm))
+
+
+@pytest.mark.parametrize("bs,Hc,Wc,D", [(8, 16, 24, 9), (16, 32, 32, 5)])
+def test_cost_volume_cross_matches_cross_kernel(rng, bs, Hc, Wc, D):
+    prev, cpad = _volume_case(rng, bs, Hc, Wc, D)
+    got = K.cost_volume_cross(torch.from_numpy(prev)[None], torch.from_numpy(cpad)[None], bs, D)
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  _pallas_rowoffset(prev, cpad, bs, D, MSE, cross=True))
+
+
+def test_cross_volume_shapes_raise(rng):
+    """MSE at bs=16 with bs + D - 1 > 128 (R >= 57; the name is the raise
+    this shape met before it had a kernel): the decomposed MSE over the
+    cross volume equals JAX `_dfd_cost_volume_mse_decomp` in interpret mode
+    and the direct MSE volume, bit for bit."""
+    bs, Hc, Wc, D = 16, 32, 32, 115
+    prev, cpad = _volume_case(rng, bs, Hc, Wc, D)
+    vol = np.asarray(pk._dfd_cost_volume_mse_decomp(
+        jnp.asarray(prev, jnp.float32), jnp.asarray(cpad, jnp.float32), bs, D, True))
+    want = vol.transpose(2, 3, 0, 1).reshape(Hc // bs, Wc // bs, D * D)
+    p, c = torch.from_numpy(prev)[None], torch.from_numpy(cpad)[None]
+    got = tbbme._dfd_cost_volume(p, c, bs, D, MSE)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    assert torch.equal(got, K.cost_volume_plain(p, c, bs, D, MSE))
+
+
+def test_plain_volume_rounds_large_blocks_once():
+    """MSE at bs 20 sums past 2**24: the plain version is the exact integer
+    sum rounded to float32 once (ROADMAP queue C logs JAX's float32 sums)."""
+    bs, D = 20, 3
+    prev = torch.zeros((1, bs, bs), dtype=torch.uint8)
+    cpad = torch.full((1, bs + D - 1, bs + D - 1), 255, dtype=torch.uint8)
+    cpad[0, 0, 0] = 254
+    got = K.cost_volume_rowoffset(prev, cpad, bs, D, MSE)
+    exact = bs * bs * 255 ** 2 - (255 ** 2 - 254 ** 2)
+    assert got[0, 0, 0, 0].item() == float(np.float32(exact))
+    assert got[0, 0, 0, 1].item() == float(np.float32(bs * bs * 255 ** 2))
 
 
 def test_wrappers_check_inputs():
@@ -178,6 +229,14 @@ def test_wrappers_check_inputs():
         K.cost_volume_small_block(prev, cpad.transpose(1, 2), 2, 9, MSE)
     with pytest.raises(ValueError, match="takes"):
         K.cost_volume_mse_block(prev, cpad, 2, 9)
+    with pytest.raises(ValueError, match="overflow"):
+        K.cost_volume_rowoffset(torch.zeros((1, 182, 182), dtype=torch.uint8),
+                                torch.zeros((1, 182, 182), dtype=torch.uint8), 182, 1, MSE)
+    with pytest.raises(ValueError, match="overflow"):
+        K.cost_volume_cross(torch.zeros((1, 182, 182), dtype=torch.uint8),
+                            torch.zeros((1, 182, 182), dtype=torch.uint8), 182, 1)
+    with pytest.raises(ValueError, match="pnorm"):
+        K.cost_volume_rowoffset(prev, cpad, 2, 9, 3)
     with pytest.raises(ValueError, match="device"):
         K.warp_block_field(torch.zeros((1, 16, 16), dtype=torch.uint8, device="meta"),
                            torch.zeros((1, 2, 2, 2), dtype=torch.int32, device="meta"), 8)

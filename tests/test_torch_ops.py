@@ -164,7 +164,7 @@ def test_robust_fit_matches_reference_golden(goldens):
     g = goldens("affine_fit.npz")
     prev, curr = _t(g["prev"])[None], _t(g["curr"])[None]
     cfg = GMEConfig()
-    field = tbbme.get_motion_field(prev, curr, block_size=16)
+    field = tbbme.get_motion_field(prev, curr, block_size=16, searching_procedure=3)
     nonrobust = taff.fit_normal_equations(field, torch.ones(field.shape[:3], dtype=torch.bool), (64, 80), 4)
     np.testing.assert_allclose(nonrobust[0].numpy(), g["nonrobust"], atol=2e-3)
     robust, _ = tgme.best_affine_parameters_robust(prev, curr, _t(g["old"])[None], cfg)
@@ -268,7 +268,8 @@ def test_diamond_search_matches_jax(rng, bs, radius):
     base = rng.randint(0, 256, (2, H + shift, W + shift), np.uint8)
     prev, curr = base[:, :H, :W], base[:, shift:, shift:]
     field, diag = tbbme.get_motion_field(
-        _t(prev), _t(curr), block_size=bs, volume_radius=radius, return_diagnostics=True)
+        _t(prev), _t(curr), block_size=bs, searching_procedure=3, volume_radius=radius,
+        return_diagnostics=True)
     assert field.dtype == torch.int32 and diag["volume_edge_hits"].shape == (2,)
     for i in range(2):
         jf, jd = jbbme.get_motion_field(
@@ -284,7 +285,8 @@ def test_diamond_search_matches_jax(rng, bs, radius):
 def test_diamond_search_matches_reference_golden(goldens, pn, bs, sw):
     g = goldens("bbme_synthetic.npz")
     field = tbbme.get_motion_field(
-        _t(g["prev"])[None], _t(g["curr"])[None], block_size=bs, pnorm_distance=pn)
+        _t(g["prev"])[None], _t(g["curr"])[None], block_size=bs, searching_procedure=3,
+        pnorm_distance=pn)
     np.testing.assert_array_equal(field[0].numpy(), g[f"mf_sp3_pn{pn}_bs{bs}_sw{sw}"])
 
 
