@@ -17,7 +17,13 @@ through the entry points a user calls:
   8-pair 720p pan, and all of them on the three pan240 golden pairs against
   the port's own CPU run;
 - the default per-pair step on the pan240 golden pairs (against the goldens
-  and the CPU run) and on a 24-pair 720p pan.
+  and the CPU run) and on a 24-pair 720p pan;
+- the results driver (`process_video`, the port's main entry point) over a
+  97-frame 720p y4m pan with images and without, resumed, and with the
+  adaptive dispatch on a clip whose pairs partly escape its fast radii,
+  each against a plain loop of `gme_pipeline_batch`; the command line
+  (`python -m gme_tpu_torch.cli results`, then `stats`) over the bench's
+  207-frame 240p pan; and the volume-engine diamond at block size 20.
 
 Each 720p path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of that path launched.  Meanwhile
@@ -32,8 +38,10 @@ device it fails at once.  It imports neither `jax` nor `gme_tpu`.
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,6 +73,15 @@ GME_OPTIONS = {
 }
 DEFAULT_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block", "chase_fixpoint",
                    "warp_block_field")
+# The results driver: a 97-frame 720p pan (96 pairs, four batches of 24);
+# a 25-frame 720p clip that alternately holds still and pans ADAPTIVE_PAN
+# for the adaptive dispatch; the bench's 240p synthetic pan (bench.py:75-78,
+# 207 frames) through the command line at batch 32.
+DRIVER_FRAMES, DRIVER_HW = BATCH_720P * 4 + 1, (720, 1280)
+ADAPTIVE_FRAMES, ADAPTIVE_PAN, ADAPTIVE_BAR = BATCH_720P + 1, (10, 14), 64
+CLI_FRAMES, CLI_HW, CLI_BATCH = 207, (240, 320), 32
+BS20_BATCH = 8
+STREAMS = ("frames", "compensated", "curr_prev_diff", "curr_comp_diff", "model_motion_field")
 
 # The Pallas kernel each CUDA kernel replaces (kernel body, file:line).
 REPLACES = {
@@ -77,8 +94,8 @@ REPLACES = {
 }
 # The path whose run gives each kernel's `launches` in the JSON record.
 MAIN_PATH = {
-    "cost_volume_small_block": "gme default", "cost_volume_mse_block": "gme default",
-    "chase_fixpoint": "gme default", "warp_block_field": "gme default",
+    "cost_volume_small_block": "driver 720p", "cost_volume_mse_block": "driver 720p",
+    "chase_fixpoint": "driver 720p", "warp_block_field": "driver 720p",
     "cost_volume_rowoffset": "search three-step", "cost_volume_cross": "gme R64",
 }
 
@@ -186,6 +203,266 @@ def counted(torch, K, path, fn, kernels, launch_log, captured):
     missing = [k for k in kernels if launches[k] == 0]
     check(not missing, f"{path}: kernels of the path did not launch: {missing} ({launches})")
     return out
+
+
+def held_still_or_panned(n_frames, H, W, step, bar, seed=0):
+    """`synthetic_pan`'s texture, still on even pairs and moved by `step`
+    on odd ones, with black bars `bar` px wide at the bottom and right.
+    The bars hold the last row and column of blocks (which the reference's
+    clamp keeps off offset 0) on flat pixels, so a still pair's walks all
+    stay at 0 under the adaptive fast radii, while a pan of (10, 14) takes
+    the level-2 walks past the fast radius 12."""
+    steps = [(0, 0) if i % 2 == 0 else step for i in range(n_frames - 1)]
+    pos = np.cumsum([(0, 0)] + steps, 0)
+    last = pos[-1]
+    base = synthetic_pan(1, H + last[0], W + last[1], (0, 0), seed)[0]
+    frames = np.stack([base[last[0] - p[0]:last[0] - p[0] + H, last[1] - p[1]:last[1] - p[1] + W]
+                       for p in pos])
+    frames[:, H - bar:] = 0
+    frames[:, :, W - bar:] = 0
+    return frames
+
+
+def bench_pan_240p():
+    """bench.py's synthetic fallback (bench.py:75-78): a random texture from
+    seed 0, 207 frames of 240x320 panned (1, 2) px per frame, the geometry
+    of pan240.  The texture is as large as the pan needs: bench.py's own
+    480x640 one runs out of columns after frame 160."""
+    H, W = CLI_HW
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, 256, (H + CLI_FRAMES, W + 2 * CLI_FRAMES), np.uint8)
+    return np.stack([base[i:i + H, 2 * i:2 * i + W] for i in range(CLI_FRAMES)])
+
+
+def write_breakdown(torch, gme_tpu_torch, frames, dev, work, n=8):
+    """Host ms per pair of each piece of the driver's image writes, on the
+    first `n` pairs: the needle diagram on the path the driver takes and on
+    the Bresenham path (taken where cv2 is missing), the BGR needle PNG and
+    the four gray PNGs, each written synchronously."""
+    from gme_tpu_torch.io import draw
+    from gme_tpu_torch.io.writers import write_png
+
+    out = gme_tpu_torch.gme_pipeline_batch(torch.from_numpy(frames[:n]).to(dev),
+                                           torch.from_numpy(frames[1:n + 1]).to(dev))
+    field = out["model_motion_field"].cpu().numpy()
+    comp = out["compensated"].cpu().numpy()
+    ms = {}
+
+    def clock(name, fn, pairs=range(n)):
+        t0 = time.perf_counter()
+        for k in pairs:
+            fn(k)
+        ms[name] = round((time.perf_counter() - t0) * 1e3 / len(pairs), 3)
+
+    needles = {}
+    clock("draw", lambda k: needles.__setitem__(k, draw.draw_motion_field(frames[k], field[k])))
+    has_cv2 = draw._HAS_CV2
+    draw._HAS_CV2 = False
+    try:
+        clock("draw_bresenham", lambda k: draw.draw_motion_field(frames[k], field[k]), range(2))
+    finally:
+        draw._HAS_CV2 = has_cv2
+    path = os.path.join(work, "breakdown.png")
+    clock("needle_png", lambda k: write_png(path, needles[k]))
+    clock("gray_pngs_x4", lambda k: [write_png(path, img) for img in (
+        frames[k], comp[k], np.abs(frames[k + 1].astype(np.int16) - frames[k]).astype(np.uint8),
+        np.abs(frames[k + 1].astype(np.int16) - comp[k]).astype(np.uint8))])
+    return ms
+
+
+def step_loop(torch, gme_tpu_torch, frames, batch, dev, cfg):
+    """The plain loop the driver replaces: consecutive pairs in batches of
+    `batch`, the last padded by repeating its last pair, each uploaded,
+    stepped and its transfer keys copied back.  Returns {idx: psnr}, the
+    real pairs' edge hits (one count per pair) and the wall time."""
+    idx = list(range(1, len(frames)))
+    records, hits = {}, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(idx), batch):
+        b = idx[s:s + batch]
+        padded = b + [b[-1]] * (batch - len(b))
+        out = gme_tpu_torch.gme_pipeline_batch(
+            torch.from_numpy(frames[[i - 1 for i in padded]]).to(dev),
+            torch.from_numpy(frames[padded]).to(dev), cfg)
+        host = {k: out[k].cpu() for k in ("parameters", "model_motion_field", "compensated",
+                                          "psnr", "volume_edge_hits")}
+        hits += host["volume_edge_hits"][:len(b)].tolist()
+        records.update({str(i): float(host["psnr"][k]) for k, i in enumerate(b)})
+    return records, hits, time.perf_counter() - t0
+
+
+def read_records(out_root, video):
+    with open(os.path.join(out_root, video, "psnr_records.json")) as f:
+        return json.load(f)
+
+
+def driver_phase(torch, K, card, launch_log, captured, work, dev):
+    """The results driver on the card: `process_video` over whole 720p
+    clips (images on and off, resume, adaptive), the command line over the
+    bench's 240p pan, and the volume-engine diamond at bs 20.  Every video
+    and output lives under `work` and is removed by the caller."""
+    import gme_tpu_torch
+    from gme_tpu_torch.config import MAE, GMEConfig, PipelineConfig
+    from gme_tpu_torch.io import draw, writers
+    from gme_tpu_torch.io.video import write_y4m
+    from gme_tpu_torch.native import loader as native
+    from gme_tpu_torch.ops import bbme
+    from gme_tpu_torch.pipeline.results import process_video
+
+    cfg = GMEConfig()
+    H, W = DRIVER_HW
+    n_pairs = DRIVER_FRAMES - 1
+
+    frames = synthetic_pan(DRIVER_FRAMES, H, W, PAN_STEP)
+    clip = os.path.join(work, "pan720.y4m")
+    write_y4m(clip, list(frames))
+    want, want_hits, loop_s = step_loop(torch, gme_tpu_torch, frames, BATCH_720P, dev, cfg)
+    phase("driver", f"720p step loop: {n_pairs} pairs in {loop_s:.3f} s, "
+          f"{n_pairs / loop_s:.2f} pairs/s ({card})")
+
+    def drive(video, out, pcfg, path=None, kernels=(), **kw):
+        """process_video on the card; counted as `path` when one is given."""
+        def run_it():
+            return process_video(video, os.path.join(work, out), pcfg, device=dev, **kw)
+        if path is None:
+            return run_it()
+        return counted(torch, K, path, run_it, kernels, launch_log, captured)
+
+    pcfg = PipelineConfig(batch_size=BATCH_720P)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with_img = drive(clip, "img", pcfg, "driver 720p", DEFAULT_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    got = read_records(os.path.join(work, "img"), "pan720")
+    check(with_img["pairs_processed"] == n_pairs and len(got) == n_pairs,
+          f"driver 720p: {len(got)} records, expected {n_pairs}")
+    for s in STREAMS:
+        n = len(os.listdir(os.path.join(work, "img", "pan720", s)))
+        check(n == n_pairs, f"driver 720p: {n} PNGs in {s}, expected {n_pairs}")
+    check(got == want, "driver 720p: psnr_records.json differs from the step loop "
+          f"(max {max(abs(got[k] - want[k]) for k in want):.3g} dB)")
+    check(with_img["volume_edge_hits"] == sum(want_hits),
+          f"driver 720p: edge hits {with_img['volume_edge_hits']} != step loop {sum(want_hits)}")
+    shutil.rmtree(os.path.join(work, "img"))
+    no_img = drive(clip, "noimg", pcfg.replace(write_images=False))
+    check(read_records(os.path.join(work, "noimg"), "pan720") == want,
+          "driver 720p without images: records differ from the step loop")
+    stages = {k: round(v["total_s"], 4) for k, v in with_img["stages"].items()}
+    overlap = 1 - (with_img["wall_s"] - loop_s) / with_img["stages"]["write_outputs"]["total_s"]
+    writer = "native" if native.available() else ("cv2" if writers._HAS_CV2 else "python")
+    phase("driver", f"720p process_video B={BATCH_720P}: {n_pairs} records == the step loop "
+          f"(exact), 5 x {n_pairs} PNGs, volume_edge_hits {sum(want_hits)} (ring-visited "
+          f"pairs {sum(h > 0 for h in want_hits)}); launches "
+          f"{launch_log['driver 720p']}")
+    phase("driver", f"720p pairs/s: with images {with_img['pairs_per_s']:.2f} "
+          f"(wall {with_img['wall_s']:.3f} s), without images {no_img['pairs_per_s']:.2f} "
+          f"(wall {no_img['wall_s']:.3f} s), step loop {n_pairs / loop_s:.2f}; peak "
+          f"{peak / 2**30:.2f} GiB ({card})")
+    phase("driver", f"720p stages with images (s): {stages}; without images: "
+          f"{ {k: round(v['total_s'], 4) for k, v in no_img['stages'].items()} } ({card})")
+    phase("driver", f"720p image writes, host ms per pair (synchronous, 8 pairs): "
+          f"{write_breakdown(torch, gme_tpu_torch, frames, dev, work)} ({card})")
+    phase("driver", f"720p overlap share 1 - (wall - step loop) / write_outputs = {overlap:.4f}; "
+          f"png writer {writer}"
+          f"{'' if native.available() else ' (native: ' + str(native.build_error()).splitlines()[0] + ')'}"
+          f"; draw {'cv2' if draw._HAS_CV2 else 'Bresenham'}; decode pure-Python y4m "
+          "parser (streaming)")
+
+    # Resume: half the video, then the rest from the ledger.
+    half = n_pairs // 2
+    first = drive(clip, "resume", pcfg.replace(write_images=False), max_pairs=half)
+    rest = drive(clip, "resume", pcfg.replace(write_images=False, resume=True))
+    got = read_records(os.path.join(work, "resume"), "pan720")
+    check(first["pairs_processed"] == half and rest["pairs_processed"] == n_pairs - half
+          and got == want, f"resume: processed {first['pairs_processed']} + "
+          f"{rest['pairs_processed']}, {len(got)} records")
+    phase("driver", f"resume: max_pairs={half}, then resume=True processed "
+          f"{rest['pairs_processed']}; {len(got)} records == the step loop")
+    del frames
+
+    # The adaptive dispatch on pairs that escape the fast radii and pairs
+    # that do not.
+    alt = held_still_or_panned(ADAPTIVE_FRAMES, H, W, ADAPTIVE_PAN, ADAPTIVE_BAR)
+    alt_clip = os.path.join(work, "alt720.y4m")
+    write_y4m(alt_clip, list(alt))
+    fast = gme_tpu_torch.gme_pipeline_batch(torch.from_numpy(alt[:-1]).to(dev),
+                                            torch.from_numpy(alt[1:]).to(dev), cfg.fast())
+    fast_hits = fast["volume_edge_hits"].cpu().numpy()
+    del fast
+    escaped = int((fast_hits > 0).sum())
+    check(0 < escaped < len(fast_hits), f"adaptive clip: fast-tier edge hits {fast_hits.tolist()} "
+          "need pairs that escape and pairs that do not")
+    acfg = PipelineConfig(batch_size=BATCH_720P, write_images=False)
+    default = drive(alt_clip, "alt_default", acfg)
+    adaptive = drive(alt_clip, "alt_adaptive", acfg.replace(adaptive=True), "driver adaptive",
+                     DEFAULT_KERNELS)
+    check(read_records(os.path.join(work, "alt_adaptive"), "alt720")
+          == read_records(os.path.join(work, "alt_default"), "alt720")
+          and adaptive["volume_edge_hits"] == default["volume_edge_hits"],
+          "adaptive: records or edge hits differ from the default radii")
+    phase("driver", f"adaptive 720p B={BATCH_720P}: {escaped}/{len(fast_hits)} pairs escape the "
+          f"fast radii (fast-tier hits {fast_hits.tolist()}); records == default radii; "
+          f"{ADAPTIVE_FRAMES - 1} pairs in {adaptive['wall_s']:.3f} s against "
+          f"{default['wall_s']:.3f} s at the default radii ({card}); launches "
+          f"{launch_log['driver adaptive']}")
+    del alt
+
+    # The command line over the bench's 240p pan, in its own process.
+    pan = bench_pan_240p()
+    clip240 = os.path.join(work, "pan240s.y4m")
+    write_y4m(clip240, list(pan))
+    out240 = os.path.join(work, "cli")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m", "gme_tpu_torch.cli"]
+    platform = "gpu" if dev.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    res = subprocess.run(cli + ["results", "-v", clip240, "-o", out240, "--batch-size",
+                                str(CLI_BATCH), "--platform", platform],
+                         cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"cli results failed ({res.returncode}): {res.stderr[-2000:]}")
+    summary = json.loads(res.stdout)
+    stats = subprocess.run(cli + ["stats", out240], cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=300)
+    check(stats.returncode == 0 and stats.stdout.startswith("video pan240s"),
+          f"cli stats failed ({stats.returncode}): {stats.stderr[-2000:]}")
+    want240, hits240, loop240 = step_loop(torch, gme_tpu_torch, pan, CLI_BATCH, dev, cfg)
+    got240 = read_records(out240, "pan240s")
+    check(len(got240) == CLI_FRAMES - 1 and got240 == want240,
+          f"cli 240p: {len(got240)} records, equal to the step loop: {got240 == want240}")
+    check(summary["volume_edge_hits"] == sum(hits240),
+          "cli 240p: edge hits differ from the step loop")
+    phase("driver", f"cli results 240p B={CLI_BATCH}: {len(got240)} records == the step loop; "
+          f"psnr avg {summary['psnr']['avg']:.4f} min {summary['psnr']['min']:.4f} max "
+          f"{summary['psnr']['max']:.4f}; ring-visited pairs {sum(h > 0 for h in hits240)}, "
+          f"volume_edge_hits {sum(hits240)}; "
+          f"driver {summary['pairs_per_s']:.2f} pairs/s (wall {summary['wall_s']:.3f} s), "
+          f"command {cli_s:.1f} s, step loop {(CLI_FRAMES - 1) / loop240:.2f} pairs/s ({card}); "
+          f"cli stats: {' '.join(stats.stdout.split())}")
+    del pan
+
+    # The volume-engine diamond above bs 16: the select-chain rank map.
+    sub = synthetic_pan(BS20_BATCH + 1, H, W, PAN_STEP)
+    p20, c20 = torch.from_numpy(sub[:-1]).to(dev), torch.from_numpy(sub[1:]).to(dev)
+    kw = dict(block_size=20, searching_procedure=3, pnorm_distance=MAE, search_impl="volume",
+              return_diagnostics=True)
+    (field, diag), wall, _ = timed(torch, lambda: counted(
+        torch, K, "diamond bs20", lambda: bbme.get_motion_field(p20, c20, **kw),
+        ("cost_volume_rowoffset", "chase_fixpoint"), launch_log, captured))
+    crop = (slice(0, 1), slice(0, 360), slice(0, 640))
+    small = bbme.get_motion_field(p20[crop].cpu(), c20[crop].cpu(), **kw)
+    on_card = bbme.get_motion_field(p20[crop], c20[crop], **kw)
+    check(torch.equal(small[0], on_card[0].cpu())
+          and torch.equal(small[1]["volume_edge_hits"], on_card[1]["volume_edge_hits"].cpu()),
+          "diamond bs20: the card and the CPU differ on a 360x640 crop")
+    inner = field[:, 2:-2, 2:-2].reshape(-1, 2).cpu().numpy()
+    found = float((inner == [PAN_STEP[1], PAN_STEP[0]]).all(axis=1).mean())
+    check(found >= 0.8, f"diamond bs20: the pan is found in only {found:.3f} of the inner cells")
+    phase("driver", f"volume diamond MAE bs=20 B={BS20_BATCH} 720p: {wall * 1e3:.2f} ms, "
+          f"{BS20_BATCH / wall:.1f} pairs/s ({card}); inner cells on the pan {found:.3f}; "
+          f"volume_edge_hits {diag['volume_edge_hits'].tolist()}; 360x640 crop == CPU; "
+          f"launches {launch_log['diamond bs20']}")
 
 
 def timed(torch, fn, reps=3):
@@ -511,11 +788,23 @@ def run(torch):
     for k in INT_KEYS + ("parameters",):
         check(torch.equal(one[k][0], out[k][0].cpu()), f"720p pair 0: GPU {k} differs from the CPU run")
     phase("720p", "pair 0: GPU run == CPU plain run (integers and parameters exact)")
-
-    # Phase 10: each kernel against its plain version at every shape the
-    # counted paths gave it, on the paths' own inputs.
-    del warm, out
+    del warm, out, prev, curr
     torch.cuda.empty_cache()
+
+    # Phase 10: the results driver and the command line over whole videos.
+    # Its videos and outputs go to a directory of its own under chiprun_out/,
+    # removed afterwards.
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke_driver_", dir=out_dir)
+    try:
+        driver_phase(torch, K, card, launch_log, captured, work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # Phase 11: each kernel against its plain version at every shape the
+    # counted paths gave it, on the paths' own inputs.
     for key in sorted(captured, key=str):
         kernel, args = key[0], [a.to(dev) if isinstance(a, torch.Tensor) else a
                                 for a in captured.pop(key)]

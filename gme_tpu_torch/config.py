@@ -1,17 +1,18 @@
 """Configuration of the PyTorch port.
 
-The same frozen dataclasses as `gme_tpu.config.BBMEConfig` and
-`gme_tpu.config.GMEConfig`: the same fields and defaults.  The
-system has no learned weights, so these configs are its whole state;
-`GMEConfig.from_dict(dataclasses.asdict(jax_cfg))` (and the same for
-`BBMEConfig`) carries one across from the JAX package without importing it
-(importing `gme_tpu` loads JAX).
+The same frozen dataclasses as `gme_tpu.config` (`BBMEConfig`,
+`GMEConfig`, `MeshConfig`, `PipelineConfig`): the same fields and
+defaults.  The system has no learned weights, so these configs are its
+whole state; `PipelineConfig.from_dict(dataclasses.asdict(jax_cfg))` (and
+the same for each of the others) carries one across from the JAX package
+without importing it (importing `gme_tpu` loads JAX).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 # Searching-procedure indices (reference bbme.py:609-614).
 EXHAUSTIVE = 0
@@ -59,6 +60,9 @@ class BBMEConfig:
     search_impl: str = "auto"
     volume_radius: int = 32
 
+    def replace(self, **kw) -> "BBMEConfig":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def from_dict(cls, d: dict) -> "BBMEConfig":
         return _from_dict(cls, d)
@@ -94,9 +98,74 @@ class GMEConfig:
             dense_volume_radius=self.fast_dense_volume_radius,
         )
 
+    def bbme(self, block_size: Optional[int] = None) -> BBMEConfig:
+        return BBMEConfig(
+            block_size=self.block_size if block_size is None else block_size,
+            search_window=self.search_window,
+            searching_procedure=self.searching_procedure,
+            pnorm_distance=self.pnorm_distance,
+            max_search_iters=self.max_search_iters,
+            search_impl=self.search_impl,
+            volume_radius=self.volume_radius,
+        )
+
     def replace(self, **kw) -> "GMEConfig":
         return dataclasses.replace(self, **kw)
 
     @classmethod
     def from_dict(cls, d: dict) -> "GMEConfig":
+        return _from_dict(cls, d)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout, field-for-field the JAX package's: pairs over
+    `data`, frame rows over `space`.  The port runs 1x1 only; larger meshes
+    wait for ROADMAP A12."""
+
+    data_axis: str = "data"
+    space_axis: str = "space"
+    data: int = 1
+    space: int = 1
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.space)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MeshConfig":
+        return _from_dict(cls, d)
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The results driver's configuration (reference results.py:11,
+    114-138); field-for-field the JAX package's `PipelineConfig`."""
+
+    frame_distance: int = 1
+    gme: GMEConfig = dataclasses.field(default_factory=GMEConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    # Frame pairs per step call.
+    batch_size: int = 8
+    # Skip frame indices whose records already exist (the results directory
+    # is the restart ledger).
+    resume: bool = False
+    write_images: bool = True
+    # Escape-guarded adaptive volume radius (models.gme
+    # .gme_pipeline_batch_adaptive): equal to the full-radius run by
+    # construction.  Mesh 1x1 only.
+    adaptive: bool = False
+
+    def replace(self, **kw) -> "PipelineConfig":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PipelineConfig":
+        """From `dataclasses.asdict()` of the JAX package's PipelineConfig:
+        the nested `gme` and `mesh` dicts become their configs."""
+        d = dict(d)
+        if isinstance(d.get("gme"), dict):
+            d["gme"] = GMEConfig.from_dict(d["gme"])
+        if isinstance(d.get("mesh"), dict):
+            d["mesh"] = MeshConfig.from_dict(d["mesh"])
         return _from_dict(cls, d)

@@ -45,10 +45,13 @@ def _check_frames(previous: torch.Tensor, current: torch.Tensor) -> None:
         )
 
 
-def dense_motion_estimation(previous, current, cfg: GMEConfig = _DEFAULT):
+def dense_motion_estimation(
+    previous, current, cfg: GMEConfig = _DEFAULT, return_diagnostics: bool = False
+):
     """Dense init field: a block-2 search, diamond by default (reference
-    motion.py:13-30).  Returns the field and its (B,) `volume_edge_hits`."""
-    field, diag = get_motion_field(
+    motion.py:13-30).  With `return_diagnostics` also
+    `{"volume_edge_hits": (B,) int32}`."""
+    return get_motion_field(
         previous, current,
         block_size=cfg.dense_block_size,
         search_window=cfg.search_window,
@@ -56,18 +59,18 @@ def dense_motion_estimation(previous, current, cfg: GMEConfig = _DEFAULT):
         max_iters=cfg.max_search_iters,
         search_impl=cfg.search_impl,
         volume_radius=cfg.dense_volume_radius,
-        return_diagnostics=True,
+        return_diagnostics=return_diagnostics,
     )
-    return field, diag["volume_edge_hits"]
 
 
-def best_affine_parameters_robust(
-    previous, current, old_parameters, cfg: GMEConfig = _DEFAULT
-):
-    """Robust fit: block field -> outlier mask against the old parameters'
-    affine field -> masked normal equations (reference motion.py:210-286).
-    Returns (B, 6) parameters and the (B,) `volume_edge_hits`."""
-    gt, diag = get_motion_field(
+def first_parameter_estimation(previous, current, cfg: GMEConfig = _DEFAULT):
+    """(B, 6) translation-only first estimate (reference motion.py:160-173)."""
+    return compute_first_parameters(dense_motion_estimation(previous, current, cfg))
+
+
+def _level_field(previous, current, cfg: GMEConfig, return_diagnostics: bool = False):
+    """The block field of one pyramid level at `cfg.block_size`."""
+    return get_motion_field(
         previous, current,
         block_size=cfg.block_size,
         search_window=cfg.search_window,
@@ -75,36 +78,76 @@ def best_affine_parameters_robust(
         max_iters=cfg.max_search_iters,
         search_impl=cfg.search_impl,
         volume_radius=cfg.volume_radius,
-        return_diagnostics=True,
+        return_diagnostics=return_diagnostics,
     )
+
+
+def best_affine_parameters(previous, current, cfg: GMEConfig = _DEFAULT):
+    """(B, 6) non-robust closed-form fit over every cell (reference
+    motion.py:33-88)."""
+    gt = _level_field(previous, current, cfg)
+    inliers = torch.ones(gt.shape[:3], dtype=torch.bool, device=gt.device)
+    return fit_normal_equations(gt, inliers, tuple(previous.shape[1:]), cfg.coord_stride)
+
+
+def best_affine_parameters_robust(
+    previous, current, old_parameters, cfg: GMEConfig = _DEFAULT,
+    return_diagnostics: bool = False,
+):
+    """Robust fit: block field -> outlier mask against the old parameters'
+    affine field -> masked normal equations (reference motion.py:210-286).
+    (B, 6) parameters; with `return_diagnostics` also
+    `{"volume_edge_hits": (B,) int32}`."""
+    out = _level_field(previous, current, cfg, return_diagnostics)
+    gt, diag = out if return_diagnostics else (out, None)
     affine_field = get_motion_field_affine(gt.shape[1:3], old_parameters)
     inliers = outlier_mask(gt, affine_field, cfg.outlier_fraction)
     params = fit_normal_equations(
         gt, inliers, tuple(previous.shape[1:]), cfg.coord_stride
     )
-    return params, diag["volume_edge_hits"]
+    if return_diagnostics:
+        return params, diag
+    return params
+
+
+def global_motion_estimation(previous, current, cfg: GMEConfig = _DEFAULT):
+    """(B, 6) float32 parameters [a0,a1,a2,b0,b1,b2] of (B, H, W) uint8
+    frame pairs: coarse-to-fine robust affine GME (reference
+    motion.py:109-136)."""
+    return global_motion_estimation_with_diagnostics(previous, current, cfg)[0]
 
 
 def global_motion_estimation_with_diagnostics(
     previous: torch.Tensor, current: torch.Tensor, cfg: GMEConfig = _DEFAULT
 ):
-    """(B, 6) float32 affine parameters [a0,a1,a2,b0,b1,b2] of (B, H, W)
-    uint8 frame pairs (reference motion.py:109-136), and
-    `{"volume_edge_hits": (B,) int32}`: the walks, over the dense init and
-    every level, that entered the volume's boundary-adjacent ring."""
+    """`global_motion_estimation` and `{"volume_edge_hits": (B,) int32}`:
+    the walks, over the dense init and every level, that entered the
+    volume's boundary-adjacent ring."""
     _check_frames(previous, current)
     prev_pyr = get_pyramids(previous, cfg.pyramid_levels)
     curr_pyr = get_pyramids(current, cfg.pyramid_levels)
 
-    field, edge_hits = dense_motion_estimation(prev_pyr[0], curr_pyr[0], cfg)
+    field, diag = dense_motion_estimation(
+        prev_pyr[0], curr_pyr[0], cfg, return_diagnostics=True
+    )
+    edge_hits = diag["volume_edge_hits"]
     parameters = compute_first_parameters(field)
     for i in range(1, cfg.pyramid_levels):
         parameters = parameter_projection(parameters)
-        parameters, hits = best_affine_parameters_robust(
-            prev_pyr[i], curr_pyr[i], parameters, cfg
+        parameters, diag = best_affine_parameters_robust(
+            prev_pyr[i], curr_pyr[i], parameters, cfg, return_diagnostics=True
         )
-        edge_hits = edge_hits + hits
+        edge_hits = edge_hits + diag["volume_edge_hits"]
     return parameters, {"volume_edge_hits": edge_hits}
+
+
+def motion_compensation(previous, current, cfg: GMEConfig = _DEFAULT):
+    """One-shot GME and warp of the previous frames (reference
+    motion.py:324-341): (B, H, W) uint8."""
+    parameters = global_motion_estimation(previous, current, cfg)
+    _, H, W = previous.shape
+    field = get_motion_field_affine((H // cfg.block_size, W // cfg.block_size), parameters)
+    return compensate_frame(previous, field)
 
 
 def gme_pipeline_batch(
@@ -140,3 +183,34 @@ def gme_pipeline_step(
     batch dimension."""
     out = gme_pipeline_batch(previous[None], current[None], cfg)
     return {k: v[0] for k, v in out.items()}
+
+
+def _merge_adaptive(fast_out, full_out, escaped: torch.Tensor):
+    """Per-pair select: the full-radius outputs where the fast tier's walk
+    entered the volume's boundary ring, the fast outputs elsewhere."""
+
+    def pick(a_full, a_fast):
+        sel = escaped.reshape(escaped.shape[:1] + (1,) * (a_fast.dim() - 1))
+        return torch.where(sel, a_full, a_fast)
+
+    return {k: pick(full_out[k], fast_out[k]) for k in full_out}
+
+
+def gme_pipeline_batch_adaptive(
+    previous_batch: torch.Tensor, current_batch: torch.Tensor,
+    cfg: GMEConfig = _DEFAULT,
+) -> Dict[str, torch.Tensor]:
+    """Escape-guarded adaptive volume radius (JAX models/gme.py:205-228).
+
+    The batch first runs at the tight radii of `cfg.fast()`.  Pairs whose
+    diamond walk entered the tight volume's boundary ring (per-pair
+    `volume_edge_hits` > 0, the certificate of `diamond_walk_volume`) are
+    recomputed at the full radii and merged per pair, so the result equals
+    `gme_pipeline_batch(cfg)`.  The certificate is read on the host once;
+    the full tier runs only if some pair escaped."""
+    fast_out = gme_pipeline_batch(previous_batch, current_batch, cfg.fast())
+    escaped = fast_out["volume_edge_hits"] > 0
+    if not bool(escaped.any()):
+        return fast_out
+    full_out = gme_pipeline_batch(previous_batch, current_batch, cfg)
+    return _merge_adaptive(fast_out, full_out, escaped)

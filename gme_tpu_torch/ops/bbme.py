@@ -23,14 +23,14 @@ is 0 (and three-step and exhaustive are exact on both).
 
 All DFD values are integer sums taken in int32 and rounded to float32 once:
 exact below 2**24 (every block size up to 16), so every stage is
-bit-identical to the JAX package.
+bit-identical to the JAX package.  Above block size 16 the rank map is the
+select chain (`_succ_map_select`), which compares costs and needs no pack.
 
 Motion-field convention (reference bbme.py:531-532): (B, H//bs, W//bs, 2)
 int32, channel 0 the column shift, channel 1 the row shift.
 
-Not ported yet: the select-chain rank map `_succ_map_select` (ROADMAP A9),
-so the volume-engine diamond walk raises at block sizes above 16, and the
-row-band volume `compute_cost_volume_band` (ROADMAP A12).
+Not ported yet: the row-band volume `compute_cost_volume_band` (ROADMAP
+A12).
 """
 
 from __future__ import annotations
@@ -545,6 +545,95 @@ def _succ_map_packed(
     return (best & 15).to(torch.int8).reshape(lead + (D * D,))
 
 
+def _succ_map_select(
+    volume: torch.Tensor, origins: torch.Tensor, H: int, W: int,
+    block_size: int, radius: int,
+) -> torch.Tensor:
+    """The same rank map as `_succ_map_packed`, by a select chain (JAX
+    bbme.py:828-960): per LDSP candidate, the volume shifted by the
+    candidate, with the frame clamps folded in as saturation to the
+    boundary rows, columns and corners; reduced by a strict-< first minimum
+    in LDSP order.  It compares float32 costs, so it needs no exact pack and
+    takes any block size."""
+    bs, R = block_size, radius
+    D = 2 * R + 1
+    lead = volume.shape[:-1]
+    C = lead.numel()
+    dev = volume.device
+    Vg = volume.reshape(C, D, D)
+    og = origins.expand(lead + (2,)).reshape(C, 2)
+    # Frame clamp bounds in offset space (reference bbme.py:503-504).
+    lo_r, hi_r = -og[:, 0], (H - bs - 1) - og[:, 0]
+    lo_c, hi_c = -og[:, 1], (W - bs - 1) - og[:, 1]
+    cells = torch.arange(C, device=dev)
+
+    def grid(b):
+        return (b.clamp(-R, R) + R).long()
+
+    def inside(b):
+        return b.abs() <= R
+
+    # The row or column a saturated candidate lands on, +inf when that
+    # boundary lies outside the volume; corners from the masked rows.
+    row_lo = torch.where(inside(lo_r)[:, None], Vg[cells, grid(lo_r), :], _INF)  # (C, D)
+    row_hi = torch.where(inside(hi_r)[:, None], Vg[cells, grid(hi_r), :], _INF)
+    col_lo = torch.where(inside(lo_c)[:, None], Vg[cells, :, grid(lo_c)], _INF)
+    col_hi = torch.where(inside(hi_c)[:, None], Vg[cells, :, grid(hi_c)], _INF)
+
+    def corner(row, bc):
+        return torch.where(inside(bc), row[cells, grid(bc)], _INF)[:, None, None]
+
+    c_ll, c_lh = corner(row_lo, lo_c), corner(row_lo, hi_c)
+    c_hl, c_hh = corner(row_hi, lo_c), corner(row_hi, hi_c)
+
+    vpad = F.pad(Vg, (2, 2, 2, 2), value=_INF)
+    o_grid = torch.arange(-R, R + 1, dtype=torch.int32, device=dev)
+
+    def shift1d(x, s):
+        """x (C, D) shifted by s with +inf padding: out[:, i] = x[:, i + s]."""
+        return F.pad(x, (2, 2), value=_INF)[:, s + 2: s + 2 + D]
+
+    def clip(raw, lo, hi):
+        # jnp.clip(raw, lo, hi) == min(max(raw, lo), hi), also when lo > hi.
+        return torch.minimum(torch.maximum(raw[None], lo[:, None]), hi[:, None])
+
+    best_cost = best_k = None
+    for k, (a, b) in enumerate(LDSP):
+        er_raw, ec_raw = o_grid + a, o_grid + b  # (D,)
+        er, ec = clip(er_raw, lo_r, hi_r), clip(ec_raw, lo_c, hi_c)  # (C, D)
+        sat_r, sat_c = (er != er_raw)[:, :, None], (ec != ec_raw)[:, None, :]
+        below_r = (er_raw[None] < lo_r[:, None])[:, :, None]
+        below_c = (ec_raw[None] < lo_c[:, None])[:, None, :]
+        unsat = vpad[:, a + 2: a + 2 + D, b + 2: b + 2 + D]
+        row_val = torch.where(below_r, shift1d(row_lo, b)[:, None, :],
+                              shift1d(row_hi, b)[:, None, :])
+        col_val = torch.where(below_c, shift1d(col_lo, a)[:, :, None],
+                              shift1d(col_hi, a)[:, :, None])
+        corner_val = torch.where(below_r, torch.where(below_c, c_ll, c_lh),
+                                 torch.where(below_c, c_hl, c_hh))
+        cost = torch.where(sat_r & sat_c, corner_val,
+                           torch.where(sat_r, row_val, torch.where(sat_c, col_val, unsat)))
+        in_volume = (er.abs() <= R)[:, :, None] & (ec.abs() <= R)[:, None, :]
+        cost = torch.where(in_volume, cost, _INF)
+        if best_cost is None:
+            best_cost = cost
+            best_k = torch.zeros(cost.shape, dtype=torch.int8, device=dev)
+        else:
+            take = cost < best_cost  # strict <: the first minimum in LDSP order
+            best_cost = torch.where(take, cost, best_cost)
+            best_k = torch.where(take, torch.tensor(k, dtype=torch.int8, device=dev), best_k)
+    return best_k.reshape(lead + (D * D,))
+
+
+def _succ_map(volume, origins, H: int, W: int, block_size: int, radius: int) -> torch.Tensor:
+    """Rank-map dispatch (JAX bbme.py:819-825): the packed builder wherever
+    the cost*16 + rank pack is exact (max DFD bs^2 * 255^2 < 2**24, bs <=
+    16), else the select chain."""
+    if block_size * block_size * 255 * 255 < 2**24:
+        return _succ_map_packed(volume, origins, H, W, block_size, radius)
+    return _succ_map_select(volume, origins, H, W, block_size, radius)
+
+
 def diamond_walk_volume(
     volume: torch.Tensor, origins: torch.Tensor, H: int, W: int,
     block_size: int, radius: int, max_iters: int = 4096,
@@ -556,14 +645,9 @@ def diamond_walk_volume(
     larger radius could not change the result when zero."""
     bs, R = block_size, radius
     D = 2 * R + 1
-    if bs * bs * 255 * 255 >= 2**24:
-        raise NotImplementedError(
-            f"volume-engine diamond search at bs={bs} > 16 needs the select-chain "
-            "rank map, not ported yet (ROADMAP A9); search_impl='gather' takes it"
-        )
     lead = volume.shape[:-1]
     B = lead[0]
-    rank_map = _succ_map_packed(volume, origins, H, W, bs, R)
+    rank_map = _succ_map(volume, origins, H, W, bs, R)
     og = origins.expand(lead + (2,))
     bounds = torch.stack(
         [-og[..., 0], (H - bs - 1) - og[..., 0], -og[..., 1], (W - bs - 1) - og[..., 1]],

@@ -255,3 +255,43 @@ def test_unknown_procedure_and_pnorm_raise():
         tbbme.get_motion_field(prev, prev, searching_procedure=7)
     with pytest.raises(ValueError, match="pnorm"):
         tbbme.get_motion_field(prev, prev, pnorm_distance=5, search_impl="gather")
+
+
+# ---------------------------------------------------------------------------
+# The select-chain rank map (above block size 16)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bs", [20, 24])
+@pytest.mark.parametrize("shift,radius", [((3, -5), 32), ((12, 17), 6)])
+def test_volume_diamond_above_bs16_equals_jax(bs, shift, radius):
+    """MAE volumes are exact in both packages at bs 20/24 (max 24**2 * 255
+    < 2**24), so the volume-engine diamond walk on the select-chain rank
+    map equals JAX's field and ring count; radius 6 makes walks reach the
+    ring and the clamps.  (MSE is not compared above bs 16: JAX's float32
+    sums are not exact there, ROADMAP queue C.)"""
+    rng = np.random.RandomState(bs + radius)
+    prev = _smooth_frame(rng, 96, 120)
+    curr = np.roll(prev, shift, (0, 1))
+    kw = dict(block_size=bs, searching_procedure=3, pnorm_distance=MAE, search_impl="volume",
+              volume_radius=radius, return_diagnostics=True)
+    got, diag = tbbme.get_motion_field(_t(prev)[None], _t(curr)[None], **kw)
+    want, wdiag = jbbme.get_motion_field(jnp.asarray(prev), jnp.asarray(curr), **kw)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+    assert int(diag["volume_edge_hits"][0]) == int(wdiag["volume_edge_hits"])
+    assert (int(diag["volume_edge_hits"][0]) > 0) == (radius == 6)
+
+
+@pytest.mark.parametrize("bs,R,shift", [(4, 3, (2, 2)), (8, 5, (3, -4)), (16, 6, (7, 9)),
+                                         (2, 16, (-5, 6))])
+def test_select_rank_map_equals_packed(bs, R, shift):
+    """At bs <= 16 both builders apply; their rank maps are equal (as
+    tests/test_pallas.py holds them for JAX), frame clamps included."""
+    rng = np.random.RandomState(bs * 100 + R)
+    prev = np.stack([_smooth_frame(rng, 64, 80), rng.randint(0, 256, (64, 80)).astype(np.uint8)])
+    curr = np.stack([np.roll(prev[0], shift, (0, 1)), np.roll(prev[1], (1, 1), (0, 1))])
+    P, C = _t(prev), _t(curr)
+    vol = tbbme.compute_cost_volume(P, C, bs, R, MSE)
+    og = tbbme._block_origins(64 // bs, 80 // bs, bs, "cpu")
+    packed = tbbme._succ_map_packed(vol, og, 64, 80, bs, R)
+    assert torch.equal(tbbme._succ_map_select(vol, og, 64, 80, bs, R), packed)
+    assert torch.equal(tbbme._succ_map(vol, og, 64, 80, bs, R), packed)

@@ -10,15 +10,20 @@ main-path shapes are exercised by chip_smoke.py.  Every kernel output is
 an integer, so every kernel comparison is `torch.equal`.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from gme_tpu_torch.config import DIAMOND, MAE, MSE, GMEConfig
-from gme_tpu_torch.models.gme import gme_pipeline_batch
+from gme_tpu_torch.config import DIAMOND, MAE, MSE, GMEConfig, PipelineConfig
+from gme_tpu_torch.io.video import write_y4m
+from gme_tpu_torch.models.gme import gme_pipeline_batch, gme_pipeline_batch_adaptive
 from gme_tpu_torch.models.hierarchical_bbme import hierarchical_wrapper
 from gme_tpu_torch.ops import bbme
 from gme_tpu_torch.ops import cuda_kernels as K
+from gme_tpu_torch.pipeline.results import process_video
 
 DEFAULT_PATH_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block",
                         "chase_fixpoint", "warp_block_field")
@@ -206,3 +211,63 @@ def test_hierarchical_wrapper_equals_cpu(cuda):
     want = hierarchical_wrapper(prev, curr, searching_procedure=DIAMOND)
     got = hierarchical_wrapper(prev.to(cuda), curr.to(cuda), searching_procedure=DIAMOND)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shift", [(3, -5), (12, 17)])
+def test_volume_diamond_bs20_equals_cpu(cuda, shift):
+    """The select-chain rank map (bs > 16) on the card equals the CPU."""
+    prev, curr = _pan_pair(20, 100, 140, shift)
+    kw = dict(block_size=20, searching_procedure=DIAMOND, pnorm_distance=MAE,
+              search_impl="volume", volume_radius=8, return_diagnostics=True)
+    want, wd = bbme.get_motion_field(prev, curr, **kw)
+    got, gd = bbme.get_motion_field(prev.to(cuda), curr.to(cuda), **kw)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(gd["volume_edge_hits"].cpu(), wd["volume_edge_hits"])
+
+
+def _alternating_clip(n=7, H=128, W=160):
+    """Panned alternately (2, 3) and (10, 14) px per frame: some pairs
+    escape the fast radii, some do not."""
+    steps = [(2, 3), (10, 14)] * (n // 2)
+    pos = np.cumsum([(0, 0)] + steps[: n - 1], 0)
+    last = pos[-1]
+    rng = np.random.RandomState(0)
+    low = rng.randint(0, 256, ((H + last[0]) // 4 + 1, (W + last[1]) // 4 + 1)).astype(np.float32)
+    base = np.kron(low, np.ones((4, 4), np.float32)).astype(np.uint8)
+    return np.stack([base[last[0] - p[0]: last[0] - p[0] + H, last[1] - p[1]: last[1] - p[1] + W]
+                     for p in pos])
+
+
+def test_adaptive_equals_default(cuda):
+    frames = torch.from_numpy(_alternating_clip()).to(cuda)
+    prev, curr = frames[:-1], frames[1:]
+    fast = gme_pipeline_batch(prev, curr, GMEConfig().fast())["volume_edge_hits"]
+    assert bool((fast > 0).any()) and bool((fast == 0).any()), fast
+    got = gme_pipeline_batch_adaptive(prev, curr)
+    want = gme_pipeline_batch(prev, curr)
+    for k in want:
+        if k != "volume_edge_hits":
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_driver_equals_cpu(cuda, tmp_path):
+    """process_video on the card writes the CPU run's files: the same PSNR
+    records and byte-equal PNGs (one writer, equal pixels)."""
+    clip = str(tmp_path / "alt.y4m")
+    write_y4m(clip, list(_alternating_clip(n=6)))
+    cfg = PipelineConfig(batch_size=2)
+    got = process_video(clip, str(tmp_path / "gpu"), cfg, device="cuda")
+    want = process_video(clip, str(tmp_path / "cpu"), cfg, device="cpu")
+    assert got["pairs_processed"] == want["pairs_processed"] == 5
+    assert got["volume_edge_hits"] == want["volume_edge_hits"]
+    recs = [json.load(open(tmp_path / d / "alt" / "psnr_records.json")) for d in ("gpu", "cpu")]
+    assert sorted(recs[0]) == sorted(recs[1])
+    for k in recs[1]:
+        assert abs(recs[0][k] - recs[1][k]) <= 1e-4, k
+    for stream in ("frames", "compensated", "curr_prev_diff", "curr_comp_diff",
+                   "model_motion_field"):
+        names = sorted(os.listdir(tmp_path / "cpu" / "alt" / stream))
+        assert len(names) == 5 and names == sorted(os.listdir(tmp_path / "gpu" / "alt" / stream))
+        for name in names:
+            assert ((tmp_path / "gpu" / "alt" / stream / name).read_bytes()
+                    == (tmp_path / "cpu" / "alt" / stream / name).read_bytes()), (stream, name)

@@ -167,8 +167,11 @@ def test_robust_fit_matches_reference_golden(goldens):
     field = tbbme.get_motion_field(prev, curr, block_size=16, searching_procedure=3)
     nonrobust = taff.fit_normal_equations(field, torch.ones(field.shape[:3], dtype=torch.bool), (64, 80), 4)
     np.testing.assert_allclose(nonrobust[0].numpy(), g["nonrobust"], atol=2e-3)
-    robust, _ = tgme.best_affine_parameters_robust(prev, curr, _t(g["old"])[None], cfg)
+    robust = tgme.best_affine_parameters_robust(prev, curr, _t(g["old"])[None], cfg)
     np.testing.assert_allclose(robust[0].numpy(), g["robust"], atol=2e-3)
+    with_diag, diag = tgme.best_affine_parameters_robust(
+        prev, curr, _t(g["old"])[None], cfg, return_diagnostics=True)
+    assert torch.equal(with_diag, robust) and diag["volume_edge_hits"].shape == (1,)
     want = np.asarray(jgme.best_affine_parameters_robust(
         jnp.asarray(g["prev"]), jnp.asarray(g["curr"]), jnp.asarray(g["old"]),
         JaxGMEConfig(search_impl="volume")))
