@@ -5,8 +5,13 @@
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit.  It builds the port's six kernels from the sources in the
-checkout (one nvcc per source, side by side), holds each kernel to its
-plain PyTorch version at the shapes its path gives it, and drives each path
+checkout (one nvcc per source, side by side; where the toolkit has
+cuobjdump, it fails unless cost_volume_mse_block's SASS holds integer
+tensor-core instructions), holds each kernel to its plain PyTorch version
+at the shapes its path gives it and times both, with the bound of the
+kernel's function there (its bytes at the HBM rate or its operations at
+their unit's peak, whichever is larger) and, for the cross volume, one
+PyTorch call for the same function (a grouped conv2d), and drives each path
 through the entry points a user calls:
 
 - the block-matching goldens (`bbme_synthetic.npz`, both engines, and
@@ -83,6 +88,15 @@ CLI_FRAMES, CLI_HW, CLI_BATCH = 207, (240, 320), 32
 BS20_BATCH = 8
 STREAMS = ("frames", "compensated", "curr_prev_diff", "curr_comp_diff", "model_motion_field")
 
+# Published H100 SXM peaks (NVIDIA's data sheet; 700 W): HBM3 bytes/s and the
+# dense int8 tensor-core rate; the int32 rate outside the tensor cores is
+# 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_RATE = {"int8 tensor": INT8_TENSOR_OPS_PER_S, "int32": INT32_OPS_PER_S}
+SSD_MAX = 16 * 16 * 255 ** 2  # the largest block SSD at bs 16
+
 # The Pallas kernel each CUDA kernel replaces (kernel body, file:line).
 REPLACES = {
     "cost_volume_small_block": "gme_tpu/ops/pallas_kernels.py:128",
@@ -154,12 +168,14 @@ def max_abs_err(torch, a, b):
 
 
 def ptxas_summary(log):
-    """kernel -> 'N registers, S B stack, spills st/ld' from nvcc -Xptxas -v."""
+    """kernel (with its template arguments, if any) -> 'N registers, S B
+    stack, spills st/ld' from nvcc -Xptxas -v."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?\d+([a-z_]+)_kernel", line)
+        m = re.search(r"Compiling entry function '.*?\d+([a-z_]+)_kernel(I\w*?EE)?", line)
         if m:
-            name = m.group(1)
+            args = re.findall(r"L(?:i|b)(\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             out[name] = f"stack {m.group(1)} B, spill stores {m.group(2)} B, spill loads {m.group(3)} B"
@@ -168,6 +184,93 @@ def ptxas_summary(log):
             smem = re.search(r"(\d+) bytes smem", m.group(2))
             out[name] += f", {m.group(1)} registers, static smem {smem.group(1) if smem else 0} B"
     return out
+
+
+def tensor_core_instructions(K, library):
+    """{kernel function: count of integer tensor-core instructions (IMMA,
+    IGMMA)} in the built library's SASS, or None where the toolkit has no
+    cuobjdump."""
+    tool = os.path.join(os.path.dirname(K.find_nvcc()), "cuobjdump")
+    tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
+    if not tool:
+        return None
+    res = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn and re.search(r"\bIG?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def chase_reads(K, rank, bounds, D, R, iters):
+    """Rank-map bytes the chase must read on these inputs: one a step for
+    each cell, up to the step that finds it at its fixpoint (at most
+    `iters`), from the plain lockstep walk."""
+    final, _ = K.chase_fixpoint_plain(rank, bounds, D, R, iters)
+    moves = final.new_zeros(final.shape, dtype=final.dtype)
+    for i in range(iters):
+        still = K.chase_fixpoint_plain(rank, bounds, D, R, i)[0] != final
+        if not bool(still.any()):
+            break
+        moves += still.to(moves.dtype)
+    return int((moves + 1).clamp(max=iters).sum())
+
+
+def work(K, kernel, args):
+    """(bytes, operations, kind of operation) of the kernel's function on
+    these arguments: each input read once and each output written once;
+    for the volumes the instructions a pixel term needs: a u8 multiply-add,
+    2 operations, on the int8 tensor cores where the function has that form,
+    else a quarter of `__vabsdiffu4` + `__dp4a`, which take 4 terms in 2
+    int32 instructions; none counted for the chase and the warp, whose work
+    is index arithmetic."""
+    if kernel.startswith("cost_volume"):
+        p, c, bs, D = args[:4]
+        B, Hc, Wc = p.shape
+        outputs = B * (Hc // bs) * (Wc // bs) * D * D
+        if kernel in ("cost_volume_mse_block", "cost_volume_cross"):
+            return p.numel() + c.numel() + 4 * outputs, 2 * outputs * bs * bs, "int8 tensor"
+        return p.numel() + c.numel() + 4 * outputs, outputs * bs * bs / 2, "int32"
+    if kernel == "chase_fixpoint":
+        rank, bounds, D, R, iters = args
+        return rank.shape[0] * (16 + 4 + 1) + chase_reads(K, rank, bounds, D, R, iters), 0, None
+    frame, d, bs = args  # warp_block_field
+    B, nbh, nbw, _ = d.shape
+    return frame.numel() + 4 * d.numel() + B * nbh * bs * nbw * bs, 0, None
+
+
+def bound(K, kernel, args, launch_ms=0.0):
+    """(bound ms, "bytes" or "operations", what binds): the least time the
+    card could take for the kernel's function, the larger of its bytes at
+    the HBM rate and its operations at their unit's peak.  What binds is
+    "bytes", "int8 tensor ops" or "int32 ops", or "latency" where one
+    launch, timed as the kernels are (`launch_ms`), takes longer still."""
+    nbytes, ops, kind = work(K, kernel, args)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_RATE[kind] * 1e3 if kind else 0.0
+    t, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    binds = "latency" if launch_ms > t else "bytes" if by == "bytes" else f"{kind} ops"
+    return t, by, binds
+
+
+def cross_library(torch, p, c, bs, D):
+    """One PyTorch call for the cross volume: a grouped float32 conv2d of
+    each cell's (bs+D-1)^2 window (built with as_strided on curr_pad, made
+    contiguous here, outside the timed call) with its prev block.  Returns
+    the call and the reshape of its output to the kernel's layout."""
+    B, Hc, Wc = p.shape
+    nbh, nbw, Kw = Hc // bs, Wc // bs, bs + D - 1
+    Hp, Wp = c.shape[1:]
+    n = B * nbh * nbw
+    win = c.as_strided((B, nbh, nbw, Kw, Kw), (Hp * Wp, bs * Wp, bs, Wp, 1))
+    win = win.reshape(1, n, Kw, Kw).float()
+    weight = p.reshape(B, nbh, bs, nbw, bs).permute(0, 1, 3, 2, 4).reshape(n, 1, bs, bs).float()
+    return (lambda: torch.nn.functional.conv2d(win, weight, groups=n),
+            lambda out: out.reshape(B, nbh, nbw, D * D))
 
 
 def capturing(torch, name, wrapper, captured):
@@ -506,8 +609,19 @@ def run(torch):
     phase("build", f"nvcc {built.seconds:.1f} s -> {os.path.relpath(built.path, HERE)}")
     summary = ptxas_summary(built.log)
     for kernel in K.LAUNCHES:
-        check(kernel in summary, f"ptxas printed nothing for {kernel}")
-        phase("build", f"{kernel}: {summary[kernel]}")
+        check(any(k.split("<")[0] == kernel for k in summary), f"ptxas printed nothing for {kernel}")
+    for name_args, line in sorted(summary.items()):
+        phase("build", f"{name_args}: {line}")
+    tc = tensor_core_instructions(K, built.path)
+    if tc is None:
+        phase("build", "no cuobjdump in the toolkit: the SASS of cost_volume_mse_block is not read")
+    else:
+        mse = {f: n for f, n in tc.items() if "cost_volume_mse_block_kernel" in f}
+        n_tc = sum(mse.values())
+        phase("build", f"cost_volume_mse_block SASS: {n_tc} integer tensor-core instructions "
+              f"(IMMA/IGMMA) over {len(mse)} instantiations")
+        check(n_tc > 0, "cost_volume_mse_block's SASS holds no IMMA/IGMMA: the tensor-core "
+              "path was not built")
     K.load_library()
 
     # Inputs at the main path's 720p shapes: the 24-pair synthetic pan.
@@ -517,7 +631,11 @@ def run(torch):
     prev_pyr = gme_tpu_torch.get_pyramids(prev, cfg.pyramid_levels)
     curr_pyr = gme_tpu_torch.get_pyramids(curr, cfg.pyramid_levels)
 
-    # Phase 3: each kernel against its plain version, bit for bit.
+    # Phase 3: each kernel against its plain version, bit for bit.  The
+    # launch floor: one launch of a one-element fill, timed as the kernels
+    # are; where it exceeds a function's bound, latency binds.
+    launch_ms = cuda_ms(torch, torch.zeros(1, device=dev).zero_, KERNEL_REPS)
+    phase("kernels", f"launch floor {launch_ms:.4f} ms (one-element fill, {card})")
     records = {k: {"max_abs_err": 0.0} for k in K.LAUNCHES}
     # Each wrapper's plain version, called with the wrapper's arguments.
     plain_of = {
@@ -541,68 +659,102 @@ def run(torch):
         check(equal, f"{kernel} disagrees with its plain version (max_abs_err {err})")
         return err
 
-    def compare(kernel, run_kernel, run_plain, shape_note, main=True):
-        """Hold the kernel to its plain version and time both; the record
-        keeps the times of the main path's shape (`main`)."""
-        err = agree(kernel, run_kernel(), run_plain())
+    def compare(kernel, args, shape_note, main=True, library=None):
+        """Hold the kernel to its plain version on `args` and time both,
+        with the bound of its function there; `library` is one PyTorch call
+        computing the same function (checked equal, then timed).  The
+        record keeps the figures of the main path's shape (`main`)."""
+        run_kernel = lambda: getattr(K, kernel)(*args)  # noqa: E731
+        run_plain = lambda: plain_of[kernel](*args)  # noqa: E731
+        got = run_kernel()
+        err = agree(kernel, got, run_plain())
         ms = cuda_ms(torch, run_kernel, KERNEL_REPS)
         plain_ms = cuda_ms(torch, run_plain, PLAIN_REPS)
+        bound_ms, bound_by, binds = bound(K, kernel, args, launch_ms)
+        share = max(bound_ms, launch_ms) / ms
+        library_ms, note = None, ""
+        if library is not None:
+            call, to_layout = library
+            check(torch.equal(to_layout(call()), got), f"{kernel}: the library call differs")
+            library_ms = cuda_ms(torch, call, PLAIN_REPS)
+            note = f", library {library_ms:.4f} ms (equal)"
+        del got
         if main:
-            records[kernel].update(ms=ms, plain_ms=plain_ms)
+            records[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   binds=binds, launch_ms=launch_ms, share=share,
+                                   library_ms=library_ms)
         phase("kernels", f"{kernel} {shape_note}: bit-equal=True max_abs_err={err} "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{note}; bound {bound_ms:.4f} ms "
+              f"by {bound_by}, {binds} binds, share {share:.4f} ({card})")
 
+    bs0 = cfg.dense_block_size
     R0 = min(cfg.dense_volume_radius, max(prev_pyr[0].shape[1:]))
-    p0, c0 = bbme.volume_inputs(prev_pyr[0], curr_pyr[0], cfg.dense_block_size, R0)
+    p0, c0 = bbme.volume_inputs(prev_pyr[0], curr_pyr[0], bs0, R0)
     D0 = 2 * R0 + 1
-    compare("cost_volume_small_block",
-            lambda: K.cost_volume_small_block(p0, c0, cfg.dense_block_size, D0, MSE),
-            lambda: K.cost_volume_plain(p0, c0, cfg.dense_block_size, D0, MSE),
-            f"B={BATCH_720P} {tuple(prev_pyr[0].shape[1:])} bs={cfg.dense_block_size} D={D0}")
+    compare("cost_volume_small_block", (p0, c0, bs0, D0, MSE),
+            f"B={BATCH_720P} {tuple(prev_pyr[0].shape[1:])} bs={bs0} D={D0}")
+    # The adaptive fast tier's dense init: D 17.
+    R0f = cfg.fast_dense_volume_radius
+    p0, c0 = bbme.volume_inputs(prev_pyr[0], curr_pyr[0], bs0, R0f)
+    compare("cost_volume_small_block", (p0, c0, bs0, 2 * R0f + 1, MSE),
+            f"B={BATCH_720P} {tuple(prev_pyr[0].shape[1:])} bs={bs0} D={2 * R0f + 1} "
+            "(adaptive fast tier)", main=False)
     # The exhaustive dense init of `-sp 0`: bs 2, D = 2*sw + bs = 6.
-    p6, c6 = bbme.exhaustive_inputs(prev_pyr[0], curr_pyr[0], cfg.dense_block_size,
-                                    cfg.search_window)
-    D6 = 2 * cfg.search_window + cfg.dense_block_size
-    compare("cost_volume_rowoffset",
-            lambda: K.cost_volume_rowoffset(p6, c6, cfg.dense_block_size, D6, MSE),
-            lambda: K.cost_volume_plain(p6, c6, cfg.dense_block_size, D6, MSE),
-            f"B={BATCH_720P} {tuple(prev_pyr[0].shape[1:])} MSE bs={cfg.dense_block_size} "
+    p6, c6 = bbme.exhaustive_inputs(prev_pyr[0], curr_pyr[0], bs0, cfg.search_window)
+    D6 = 2 * cfg.search_window + bs0
+    compare("cost_volume_rowoffset", (p6, c6, bs0, D6, MSE),
+            f"B={BATCH_720P} {tuple(prev_pyr[0].shape[1:])} MSE bs={bs0} "
             f"D={D6} (GME -sp 0 dense init)", main=False)
     del p0, c0, p6, c6
 
+    bs = cfg.block_size
     R2 = min(cfg.volume_radius, max(prev.shape[1:]))
-    p2, c2 = bbme.volume_inputs(prev, curr, cfg.block_size, R2)
+    p2, c2 = bbme.volume_inputs(prev, curr, bs, R2)
     D2 = 2 * R2 + 1
-    compare("cost_volume_mse_block",
-            lambda: K.cost_volume_mse_block(p2, c2, cfg.block_size, D2),
-            lambda: K.cost_volume_plain(p2, c2, cfg.block_size, D2, MSE),
-            f"B={BATCH_720P} {tuple(prev.shape[1:])} bs={cfg.block_size} D={D2}")
+    compare("cost_volume_mse_block", (p2, c2, bs, D2),
+            f"B={BATCH_720P} {tuple(prev.shape[1:])} bs={bs} D={D2}")
+    # The largest SSD everywhere: all-0 prev blocks against all-255 windows.
+    p2, c2 = torch.zeros_like(p2), torch.full_like(c2, 255)
+    compare("cost_volume_mse_block", (p2, c2, bs, D2),
+            f"B={BATCH_720P} {tuple(prev.shape[1:])} bs={bs} D={D2} (0 against 255)", main=False)
+    check(float(K.cost_volume_mse_block(p2, c2, bs, D2).min()) == SSD_MAX,
+          "cost_volume_mse_block: 0 against 255 is not 16,646,400 everywhere")
+    # The adaptive fast tier's levels: D 25.
+    R2f = cfg.fast_volume_radius
+    p2, c2 = bbme.volume_inputs(prev, curr, bs, R2f)
+    compare("cost_volume_mse_block", (p2, c2, bs, 2 * R2f + 1),
+            f"B={BATCH_720P} {tuple(prev.shape[1:])} bs={bs} D={2 * R2f + 1} (adaptive fast tier)",
+            main=False)
     del p2, c2
 
     # The BBME command line's three-step volume: MAE, bs 12, exact radius 25.
     R3 = bbme.threestep_search_radius(CLI_BS, CLI_SW)
     p3, c3 = bbme.volume_inputs(prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], CLI_BS, R3)
     D3 = 2 * R3 + 1
-    compare("cost_volume_rowoffset",
-            lambda: K.cost_volume_rowoffset(p3, c3, CLI_BS, D3, MAE),
-            lambda: K.cost_volume_plain(p3, c3, CLI_BS, D3, MAE),
+    compare("cost_volume_rowoffset", (p3, c3, CLI_BS, D3, MAE),
             f"B={BATCH_SEARCH} {tuple(prev.shape[1:])} MAE bs={CLI_BS} D={D3} (three-step)")
     del p3, c3
 
     # The level-2 cross volume of the GME step at volume_radius=64: B 8,
-    # bs 16, D 129.
+    # bs 16, D 129; its yardstick is one grouped conv2d in float32 (exact:
+    # integer sums below 2**24), TF32 off.
     R64 = 64
-    p4, c4 = bbme.volume_inputs(prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], cfg.block_size, R64)
+    p4, c4 = bbme.volume_inputs(prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], bs, R64)
     D4 = 2 * R64 + 1
-    compare("cost_volume_cross",
-            lambda: K.cost_volume_cross(p4, c4, cfg.block_size, D4),
-            lambda: K.cost_volume_cross_plain(p4, c4, cfg.block_size, D4),
-            f"B={BATCH_SEARCH} {tuple(prev.shape[1:])} bs={cfg.block_size} D={D4}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        compare("cost_volume_cross", (p4, c4, bs, D4),
+                f"B={BATCH_SEARCH} {tuple(prev.shape[1:])} bs={bs} D={D4}",
+                library=cross_library(torch, p4, c4, bs, D4))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
     # The decomposed MSE (cross kernel + int32 box sums) against the direct
     # MSE volume of the row-offset kernel and the plain version.
-    ways = {"decomposed": lambda: bbme._dfd_cost_volume(p4, c4, cfg.block_size, D4, MSE),
-            "direct": lambda: K.cost_volume_rowoffset(p4, c4, cfg.block_size, D4, MSE)}
-    want = K.cost_volume_plain(p4, c4, cfg.block_size, D4, MSE)
+    ways = {"decomposed": lambda: bbme._dfd_cost_volume(p4, c4, bs, D4, MSE),
+            "direct": lambda: K.cost_volume_rowoffset(p4, c4, bs, D4, MSE)}
+    want = K.cost_volume_plain(p4, c4, bs, D4, MSE)
     notes = []
     for way, fn in ways.items():
         torch.cuda.synchronize()
@@ -612,12 +764,11 @@ def run(torch):
         extra = torch.cuda.max_memory_allocated() - base
         notes.append(f"{way} {cuda_ms(torch, fn, KERNEL_REPS):.4f} ms, "
                      f"{extra / 2**30:.2f} GiB above its inputs")
-    phase("kernels", f"MSE B={BATCH_SEARCH} bs={cfg.block_size} D={D4}: decomposed == direct == "
+    phase("kernels", f"MSE B={BATCH_SEARCH} bs={bs} D={D4}: decomposed == direct == "
           f"plain; {'; '.join(notes)} ({card})")
     del p4, c4, want
 
     H, W = prev.shape[1:]
-    bs = cfg.block_size
     volume = bbme.compute_cost_volume(prev, curr, bs, R2, MSE)
     origins = bbme._block_origins(H // bs, W // bs, bs, dev)
     rank = bbme._succ_map_packed(volume, origins, H, W, bs, R2).reshape(-1, D2 * D2)
@@ -625,20 +776,14 @@ def run(torch):
     og = origins.expand((BATCH_720P,) + origins.shape).reshape(-1, 2)
     bounds = torch.stack([-og[:, 0], (H - bs - 1) - og[:, 0], -og[:, 1], (W - bs - 1) - og[:, 1]],
                          dim=1).to(torch.int32).contiguous()
-    it = cfg.max_search_iters
-    compare("chase_fixpoint",
-            lambda: K.chase_fixpoint(rank, bounds, D2, R2, it),
-            lambda: K.chase_fixpoint_plain(rank, bounds, D2, R2, it),
+    compare("chase_fixpoint", (rank, bounds, D2, R2, cfg.max_search_iters),
             f"C={rank.shape[0]} D={D2}")
     del rank, bounds
 
     gen = torch.Generator(device=dev).manual_seed(0)
     d = torch.randint(-40, 41, (BATCH_720P, H // bs, W // bs, 2), dtype=torch.int32,
                       device=dev, generator=gen)
-    compare("warp_block_field",
-            lambda: K.warp_block_field(prev, d, bs),
-            lambda: K.warp_block_field_plain(prev, d, bs),
-            f"B={BATCH_720P} {(H, W)} bs={bs}")
+    compare("warp_block_field", (prev, d, bs), f"B={BATCH_720P} {(H, W)} bs={bs}")
     del d, prev_pyr, curr_pyr
     torch.cuda.empty_cache()
 
@@ -810,8 +955,10 @@ def run(torch):
                                 for a in captured.pop(key)]
         err = agree(kernel, getattr(K, kernel)(*args), plain_of[kernel](*args))
         ms = cuda_ms(torch, lambda: getattr(K, kernel)(*args), PLAIN_REPS)
+        bound_ms, bound_by, binds = bound(K, kernel, args, launch_ms)
         phase("paths", f"{kernel} {key[1:]}: bit-equal=True max_abs_err={err} "
-              f"kernel {ms:.4f} ms ({card})")
+              f"kernel {ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}, {binds} binds, "
+              f"share {max(bound_ms, launch_ms) / ms:.4f} ({card})")
         del args
     for k in K.LAUNCHES:
         check("ms" in records[k], f"{k}: no main-path shape was timed")

@@ -291,7 +291,8 @@ def cost_volume_small_block(
     D >= 8 from uint8 (B, Hc, Wc) prev and (B, Hc+D-1, Wc+D-1) curr_pad.
 
     Replaces pallas_kernels.py:_planes_kernel; bound by its output writes on
-    the H100 (see csrc/cost_volume_small_block.cu)."""
+    the H100, four outputs a thread in one 16-byte store (see
+    csrc/cost_volume_small_block.cu)."""
     if not (bs < 8 and 8 % bs == 0 and D >= 8):
         raise ValueError(f"cost_volume_small_block takes bs < 8, 8 % bs == 0, D >= 8; got bs={bs}, D={D}")
     if pnorm not in (MAE, MSE):
@@ -314,8 +315,9 @@ def cost_volume_mse_block(
     """(B, nbh, nbw, D*D) float32 MSE volume for 8 <= bs <= 16,
     bs + D - 1 <= 128, D >= 8 (the JAX dispatch's Hankel branch).
 
-    Replaces pallas_kernels.py:_hankel_mse_kernel; bound by integer
-    multiply-adds on the H100 (see csrc/cost_volume_mse_block.cu)."""
+    Replaces pallas_kernels.py:_hankel_mse_kernel; bound by its output
+    writes on the H100, the cross term on the u8 tensor cores (see
+    csrc/cost_volume_mse_block.cu)."""
     if not (8 <= bs <= 16 and D >= 8 and bs + D - 1 <= 128):
         raise ValueError(f"cost_volume_mse_block takes 8 <= bs <= 16, D >= 8, bs + D - 1 <= 128; got bs={bs}, D={D}")
     B, nbh, nbw = _check_volume_inputs(prev_crop, curr_pad, bs, D)

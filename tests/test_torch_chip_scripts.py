@@ -1,0 +1,106 @@
+"""The card scripts' helpers on the CPU: `chip_smoke.py`'s bounds, library
+yardstick and build-log parsing.  The scripts themselves run only on the
+card."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from gme_tpu_torch.config import MAE, MSE
+from gme_tpu_torch.ops import cuda_kernels as K
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_card_scripts_load_no_jax():
+    code = ("import sys, chip_smoke, chip_profile\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gme_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr
+
+
+def _meta(*shape, dtype=torch.uint8):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("kernel,args,ms,by,binds", [
+    # the default 720p step's shapes: the output writes bind the volumes
+    ("cost_volume_mse_block", (_meta(24, 720, 1280), _meta(24, 784, 1344), 16, 65), 0.4500, "bytes",
+     "bytes"),
+    ("cost_volume_small_block", (_meta(24, 180, 320), _meta(24, 212, 352), 2, 33, MSE), 0.4503,
+     "bytes", "bytes"),
+    ("cost_volume_cross", (_meta(8, 720, 1280), _meta(8, 848, 1408), 16, 129), 0.5773, "bytes",
+     "bytes"),
+    # SAD has no tensor-core form: int32 operations, 4 terms in 2 SIMD byte
+    # instructions, bind the three-step volume
+    ("cost_volume_rowoffset", (_meta(8, 720, 1272), _meta(8, 770, 1322), 12, 51, MAE), 0.5696,
+     "operations", "int32 ops"),
+    ("warp_block_field", (_meta(24, 720, 1280), _meta(24, 45, 80, 2, dtype=torch.int32), 16), 0.0134,
+     "bytes", "bytes"),
+])
+def test_bound_of_main_path_shapes(kernel, args, ms, by, binds):
+    bound_ms, bound_by, what = chip_smoke.bound(K, kernel, args)
+    assert (bound_by, what) == (by, binds) and round(bound_ms, 4) == ms
+
+
+@pytest.mark.parametrize("launch_ms,binds", [(0.0, "bytes"), (0.0134, "bytes"), (0.0135, "latency")])
+def test_launch_floor_binds_above_the_bound(launch_ms, binds):
+    """A launch that takes longer than the function's bound binds; the bound
+    itself stays the bytes and operations one."""
+    args = (_meta(24, 720, 1280), _meta(24, 45, 80, 2, dtype=torch.int32), 16)
+    bound_ms, bound_by, what = chip_smoke.bound(K, "warp_block_field", args, launch_ms)
+    assert (round(bound_ms, 4), bound_by, what) == (0.0134, "bytes", binds)
+
+
+def test_chase_bound_counts_the_walk():
+    """Each cell reads its bounds and writes its outputs once, and reads one
+    rank byte a step up to the step that finds it fixed."""
+    rng = np.random.RandomState(0)
+    C, R = 50, 4
+    D = 2 * R + 1
+    rank = torch.from_numpy(rng.randint(0, 9, (C, D * D)).astype(np.int8))
+    bounds = torch.tensor([[-R, R, -R, R]] * C, dtype=torch.int32)
+    assert chip_smoke.chase_reads(K, rank, bounds, D, R, 1) == C
+    reads = chip_smoke.chase_reads(K, rank, bounds, D, R, 64)
+    assert C < reads <= 64 * C
+    nbytes, ops, _ = chip_smoke.work(K, "chase_fixpoint", (rank, bounds, D, R, 64))
+    assert (nbytes, ops) == (21 * C + reads, 0)
+
+
+def test_cross_library_equals_the_cross_volume():
+    """The grouped conv2d yardstick computes the cross volume exactly."""
+    rng = np.random.RandomState(1)
+    bs, D = 16, 21
+    p = torch.from_numpy(rng.randint(0, 256, (2, 32, 48)).astype(np.uint8))
+    c = torch.from_numpy(rng.randint(0, 256, (2, 32 + D - 1, 48 + D - 1)).astype(np.uint8))
+    call, to_layout = chip_smoke.cross_library(torch, p, c, bs, D)
+    assert torch.equal(to_layout(call()), K.cost_volume_cross_plain(p, c, bs, D))
+
+
+def test_ptxas_summary_names_template_instantiations():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__ead8bfa7_24_cost_volume_mse_"
+        "block_cu_99b544cf28cost_volume_mse_block_kernelILi16EEEvPKhS2_Pfiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 32 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN59_GLOBAL__N__3e2f8aeb_26_cost_volume_small_"
+        "block_cu_0ed86c9730cost_volume_small_block_kernelILi2ELb1EEEvPKhS2_Pfiiiiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 39 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121warp_block_field_kernelEPKhPKiPhiiiiii'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 18 registers, used 0 barriers",
+    ])
+    summary = chip_smoke.ptxas_summary(log)
+    assert set(summary) == {"cost_volume_mse_block<16>", "cost_volume_small_block<2, 1>",
+                            "warp_block_field"}
+    assert "64 registers, static smem 32 B" in summary["cost_volume_mse_block<16>"]
+

@@ -76,6 +76,61 @@ def test_cost_volume_largest_block_sum(cuda):
     assert float(got.max()) == 16 * 16 * 255 ** 2
 
 
+def _volume_frames(kind, rng, B, Hc, Wc, D):
+    """uint8 prev (B, Hc, Wc) and curr_pad: random, constant, or random
+    pixels of 0 and 255 (the extreme differences)."""
+    shapes = ((B, Hc, Wc), (B, Hc + D - 1, Wc + D - 1))
+    if kind == "constant":
+        return tuple(torch.full(s, v, dtype=torch.uint8) for s, v in zip(shapes, (77, 200)))
+    if kind == "extreme":
+        return tuple(torch.from_numpy((rng.randint(0, 2, s) * 255).astype(np.uint8)) for s in shapes)
+    return tuple(_u8(rng, *s) for s in shapes)
+
+
+FRAME_KINDS = ["random", "constant", "extreme"]
+
+
+@pytest.mark.parametrize("kind", FRAME_KINDS)
+@pytest.mark.parametrize("D", [8, 9, 17, 25, 65, None])  # None: bs + D - 1 = 128
+@pytest.mark.parametrize("bs", [8, 10, 12, 13, 16])
+def test_cost_volume_mse_block_tensor_core_layout(cuda, bs, D, kind):
+    """The u8 tensor-core kernel on 2 x 7 cells (7: no tile width divides
+    it), B 3 (B 1 for constant frames), bit for bit against the plain MSE."""
+    D = 129 - bs if D is None else D
+    rng = np.random.RandomState(bs * 1000 + D)
+    B = 1 if kind == "constant" else 3
+    prev, cpad = (t.to(cuda) for t in _volume_frames(kind, rng, B, 2 * bs, 7 * bs, D))
+    want = K.cost_volume_plain(prev, cpad, bs, D, MSE)
+    got = K.cost_volume_mse_block(prev, cpad, bs, D)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", FRAME_KINDS)
+@pytest.mark.parametrize("pnorm", [MAE, MSE])
+@pytest.mark.parametrize("D", [8, 17, 33, 65])
+@pytest.mark.parametrize("bs", [1, 2, 4])
+def test_cost_volume_small_block_vector_stores(cuda, bs, D, pnorm, kind):
+    """The four-outputs-a-thread kernel on 3 x 131 cells (131: ragged runs
+    of cells for every T), B 3 (B 1 for constant frames), bit for bit
+    against the plain volume."""
+    rng = np.random.RandomState(bs * 1000 + D * 10 + pnorm)
+    B = 1 if kind == "constant" else 3
+    prev, cpad = (t.to(cuda) for t in _volume_frames(kind, rng, B, 3 * bs, 131 * bs, D))
+    want = K.cost_volume_plain(prev, cpad, bs, D, pnorm)
+    got = K.cost_volume_small_block(prev, cpad, bs, D, pnorm)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pnorm", [MAE, MSE])
+@pytest.mark.parametrize("bs,D", [(1, 257), (2, 129), (2, 241), (4, 129)])
+def test_cost_volume_small_block_offset_row_bands(cuda, bs, D, pnorm):
+    """Above 8192 outputs a cell, CUDA blocks take bands of offset rows."""
+    rng = np.random.RandomState(bs * 1000 + D)
+    prev, cpad = (t.to(cuda) for t in _volume_frames("random", rng, 2, 2 * bs, 5 * bs, D))
+    want = K.cost_volume_plain(prev, cpad, bs, D, pnorm)
+    assert torch.equal(K.cost_volume_small_block(prev, cpad, bs, D, pnorm), want)
+
+
 # (bs, Hc, Wc, D): bs 1, odd bs, D < 8, D over several 16-offset tiles with
 # a ragged last tile, MSE bs 20 (sums above 2**24), partial cell tiles.
 ROWOFFSET_SHAPES = [

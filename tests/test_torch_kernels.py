@@ -7,6 +7,8 @@ The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 and chip_smoke.py hold them to these plain versions there.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import jax
@@ -240,3 +242,138 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError, match="device"):
         K.warp_block_field(torch.zeros((1, 16, 16), dtype=torch.uint8, device="meta"),
                            torch.zeros((1, 2, 2, 2), dtype=torch.int32, device="meta"), 8)
+
+
+# ---------------------------------------------------------------------------
+# CPU models of the two redesigned volume kernels' layouts
+# ---------------------------------------------------------------------------
+
+def _mma_tiling_mse(prev, cpad, bs, D):
+    """The MSE volume exactly as csrc/cost_volume_mse_block.cu lays it out,
+    in plain int32 torch.  Per cell: the (bs+D-1)^2 window zero-padded to
+    the kernel's row stride S = 8G + 28 (G = ceil(D/8)); for each prev row r
+    the A operand A[(dr, g), c'] = W[r + dr, 8g + c'] (rows m = dr*G + g,
+    padded to a multiple of 16, padded rows reading row 0) times the 8-wide
+    Toeplitz band B[c', n] = P[r, c' - n]; the sum over r is the cross term
+    at dc = 8g + n, columns dc >= D and padded rows dropped.  Epilogue:
+    box sums of W^2 (row sums over bs columns, then column sums over bs
+    rows) - 2 * cross + sum P^2, stored as float32."""
+    B, Hc, Wc = prev.shape
+    Hp, Wp = cpad.shape[1:]
+    nbh, nbw = Hc // bs, Wc // bs
+    K, G = bs + D - 1, (D + 7) // 8
+    S, M = 8 * G + 28, D * G
+    Mp = (M + 15) // 16 * 16
+    win = cpad.contiguous().as_strided((B, nbh, nbw, K, K), (Hp * Wp, bs * Wp, bs, Wp, 1))
+    win = torch.nn.functional.pad(win.to(torch.int32), (0, S - K))  # (B, nbh, nbw, K, S)
+    P = prev.reshape(B, nbh, bs, nbw, bs).permute(0, 1, 3, 2, 4).to(torch.int32)
+    m = torch.arange(Mp)
+    m = torch.where(m < M, m, 0)
+    dr, g = m // G, m % G
+    cols = 8 * g[:, None] + torch.arange(32)                    # (Mp, 32)
+    c = torch.arange(32)[:, None] - torch.arange(8)[None, :]    # c' - n, (32, 8)
+    band = (c >= 0) & (c < bs)
+    cross = torch.zeros((B, nbh, nbw, Mp, 8), dtype=torch.int32)
+    for r in range(bs):
+        A = win[..., r + dr[:, None], cols]                     # (B, nbh, nbw, Mp, 32)
+        Bm = P[..., r, :][..., c.clamp(0, bs - 1)] * band       # (B, nbh, nbw, 32, 8)
+        assert A.dtype == Bm.dtype == torch.int32
+        cross += A @ Bm
+    cross = cross[..., :M, :].reshape(B, nbh, nbw, D, 8 * G)[..., :D]
+    sq = win[..., :K] ** 2
+    i32 = torch.int32
+    box = sq.unfold(-1, bs, 1).sum(-1, dtype=i32).unfold(-2, bs, 1).sum(-1, dtype=i32)
+    sb2 = (P ** 2).sum((-2, -1), dtype=i32)
+    ssd = box - 2 * cross + sb2[..., None, None]
+    assert ssd.dtype == torch.int32
+    return ssd.to(torch.float32).reshape(B, nbh, nbw, D * D)
+
+
+MMA_SHAPES = ([(bs, D) for bs in (8, 10, 13, 16) for D in (8, 9, 25, 65)]
+              + [(8, 121), (10, 119), (13, 116), (16, 113)])  # bs + D - 1 = 128
+
+
+def _frames(kind, rng, B, Hc, Wc, D):
+    shape_p, shape_c = (B, Hc, Wc), (B, Hc + D - 1, Wc + D - 1)
+    if kind == "random":
+        return (torch.from_numpy(rng.randint(0, 256, shape_p).astype(np.uint8)),
+                torch.from_numpy(rng.randint(0, 256, shape_c).astype(np.uint8)))
+    lo, hi = (0, 255) if kind == "0-255" else (255, 0)
+    return (torch.full(shape_p, lo, dtype=torch.uint8), torch.full(shape_c, hi, dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("kind", ["random", "0-255", "255-0"])
+@pytest.mark.parametrize("bs,D", MMA_SHAPES)
+def test_mma_tiling_model_equals_plain_mse(rng, kind, bs, D):
+    """The tensor-core layout of cost_volume_mse_block, modelled in int32,
+    equals the plain MSE volume bit for bit (2 x 3 cells; all-0 against
+    all-255 reaches the 16,646,400 maximum at bs 16)."""
+    prev, cpad = _frames(kind, rng, 2 if kind == "random" else 1, 2 * bs, 3 * bs, D)
+    got = _mma_tiling_mse(prev, cpad, bs, D)
+    assert torch.equal(got, K.cost_volume_plain(prev, cpad, bs, D, MSE))
+    if kind != "random":
+        assert float(got.max()) == bs * bs * 255 ** 2
+
+
+def _small_block_walk(B, nbh, nbw, bs, D, threads=256, outputs_per_block=8192):
+    """The output walk of csrc/cost_volume_small_block.cu: a CUDA block per
+    run of T whole cells, or per band of R offset rows of one cell where a
+    cell has too many outputs; in each, the ragged head and tail one output
+    each, then the aligned quads with (cell, dr, dc) carried by a fixed
+    step.  Returns the flat index of every output written, with the (b, t,
+    j, dr, dc) the kernel computes it for."""
+    DD = D * D
+    T = max(1, min(nbw, -(-outputs_per_block // DD)))
+    R = D if T > 1 else min(D, -(-outputs_per_block // D))
+    step = 4 * threads
+    written = []
+    for b, t, j0, r0 in itertools.product(range(B), range(nbh), range(0, nbw, T), range(0, D, R)):
+        tc, nr = min(T, nbw - j0), min(R, D - r0)
+        DDc = nr * D
+        n = tc * DDc
+        first = ((b * nbh + t) * nbw + j0) * DD + r0 * D
+        head = min(n, (4 - first % 4) % 4)
+        nq = (n - head) // 4
+        tail = head + 4 * nq
+        s_cell, s_rem = divmod(step, DDc)
+        s_dr, s_dc = divmod(s_rem, D)
+        for f in list(range(head)) + list(range(tail, n)):
+            cell, rem = divmod(f, DDc)
+            dr, dc = divmod(rem, D)
+            written.append((first + f, (b, t, j0 + cell, r0 + dr, dc)))
+        for tid in range(min(threads, nq)):
+            cell, rem = divmod(head + 4 * tid, DDc)
+            dr, dc = divmod(rem, D)
+            for q in range(tid, nq, threads):
+                assert (first + head + 4 * q) % 4 == 0
+                ce, re, de = cell, dr, dc
+                for e in range(4):
+                    written.append((first + head + 4 * q + e, (b, t, j0 + ce, r0 + re, de)))
+                    de += 1
+                    if de == D:
+                        de, re = 0, re + 1
+                        if re == nr:
+                            re, ce = 0, ce + 1
+                dc += s_dc
+                if dc >= D:
+                    dc, dr = dc - D, dr + 1
+                dr += s_dr
+                if dr >= nr:
+                    dr, cell = dr - nr, cell + 1
+                cell += s_cell
+    return written
+
+
+@pytest.mark.parametrize("B,nbh,nbw,bs,D", [
+    (1, 2, 37, 2, 33), (3, 1, 160, 2, 17), (2, 2, 9, 1, 8), (1, 1, 70, 4, 65), (2, 1, 5, 2, 9),
+    (2, 1, 3, 2, 129), (1, 2, 2, 1, 257),  # bands of offset rows
+])
+def test_small_block_walk_covers_each_output_once(B, nbh, nbw, bs, D):
+    """Every output of the volume is written exactly once, at the (cell,
+    dr, dc) its flat index names, by the walk of cost_volume_small_block."""
+    written = _small_block_walk(B, nbh, nbw, bs, D)
+    DD = D * D
+    flat = sorted(f for f, _ in written)
+    assert flat == list(range(B * nbh * nbw * DD))
+    for f, (b, t, j, dr, dc) in written:
+        assert f == (((b * nbh + t) * nbw + j) * D + dr) * D + dc
