@@ -16,11 +16,13 @@ volume radius of 64 on 8 pairs, the default step on 24 pairs) it prints:
   second time;
 - the idle share, 1 - busy / host time, and the largest device items.
 
-Then it runs the two offset-tiled volume kernels at their paths' shapes
-while nvidia-smi samples the SM clock, and prints each kernel's pixel terms
-per second against the shared-memory load bound at that clock (two byte
-loads per term, one warp-wide load per clock per SM).  The last line is one
-JSON object with every number printed.  It imports neither `jax` nor
+Then it runs two volume kernels at their paths' shapes while nvidia-smi
+samples the SM clock: the offset-tiled `cost_volume_rowoffset`, whose pixel
+terms per second it holds against the shared-memory load bound at that
+clock (two byte loads per term, one warp-wide load per clock per SM), and
+the tensor-core `cost_volume_cross` in both modes, against the byte bound of
+`chip_smoke.bound`.  The last line is one JSON object with every number
+printed.  It imports neither `jax` nor
 `gme_tpu`, and needs the card.
 """
 
@@ -33,7 +35,7 @@ import time
 import numpy as np
 
 from chip_smoke import (BATCH_720P, BATCH_SEARCH, CLI_BS, CLI_SW, GME_OPTIONS, PAN_STEP,
-                        SEARCH_NAMES, cuda_ms, synthetic_pan)
+                        SEARCH_NAMES, bound, cuda_ms, synthetic_pan)
 
 
 def smi(*fields):
@@ -151,27 +153,35 @@ def main():
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     R3 = bbme.threestep_search_radius(CLI_BS, CLI_SW)
+    p3, c3 = bbme.volume_inputs(sp_prev, sp_curr, CLI_BS, R3)
+    p64, c64 = bbme.volume_inputs(sp_prev, sp_curr, cfg.block_size, 64)
     shapes = {
-        "cost_volume_rowoffset": (bbme.volume_inputs(sp_prev, sp_curr, CLI_BS, R3), CLI_BS,
-                                  2 * R3 + 1, lambda p, c, bs, D: K.cost_volume_rowoffset(
-                                      p, c, bs, D, MAE)),
-        "cost_volume_cross": (bbme.volume_inputs(sp_prev, sp_curr, cfg.block_size, 64),
-                              cfg.block_size, 129, K.cost_volume_cross),
+        "cost_volume_rowoffset": (p3, c3, CLI_BS, 2 * R3 + 1,
+                                  lambda: K.cost_volume_rowoffset(p3, c3, CLI_BS, 2 * R3 + 1, MAE)),
+        "cost_volume_cross": (p64, c64, cfg.block_size, 129,
+                              lambda: K.cost_volume_cross(p64, c64, cfg.block_size, 129)),
+        "cost_volume_cross ssd": (p64, c64, cfg.block_size, 129,
+                                  lambda: K.cost_volume_cross(p64, c64, cfg.block_size, 129,
+                                                              ssd=True)),
     }
-    for kernel, ((p, c), bs, D, launch) in shapes.items():
-        fn = lambda: launch(p, c, bs, D)  # noqa: E731
+    for kernel, (p, c, bs, D, fn) in shapes.items():
         ms = cuda_ms(torch, fn, 10)
         mhz, max_mhz = clocked(torch, fn)
-        terms = p.numel() * D * D
-        rate = terms / (ms * 1e-3)
-        bound = sms * 32 * mhz * 1e6 / 2
-        result["kernels"][kernel] = {"shape": [list(p.shape), bs, D], "ms": ms,
-                                     "terms_per_s": rate, "sm_mhz_under_load": mhz,
-                                     "sm_mhz_max": max_mhz, "sms": sms, "load_bound": bound,
-                                     "share_of_bound": rate / bound}
+        rec = {"shape": [list(p.shape), bs, D], "ms": ms, "sm_mhz_under_load": mhz,
+               "sm_mhz_max": max_mhz, "sms": sms}
+        if kernel == "cost_volume_rowoffset":
+            rate = p.numel() * D * D / (ms * 1e-3)
+            load_bound = sms * 32 * mhz * 1e6 / 2
+            rec.update(terms_per_s=rate, load_bound=load_bound, share_of_bound=rate / load_bound)
+            what = (f"{rate / 1e12:.3f} T terms/s; load bound {load_bound / 1e12:.3f} T/s, "
+                    f"{rate / load_bound:.3f} of it")
+        else:
+            bound_ms, by, _ = bound(K, "cost_volume_cross", (p, c, bs, D))
+            rec.update(bound_ms=bound_ms, bound_by=by, share_of_bound=bound_ms / ms)
+            what = f"bound {bound_ms:.4f} ms by {by}, {bound_ms / ms:.3f} of it"
+        result["kernels"][kernel] = rec
         print(f"[kernel] {kernel} B={p.shape[0]} {tuple(p.shape[1:])} bs={bs} D={D}: {ms:.4f} ms, "
-              f"{rate / 1e12:.3f} T terms/s; SM clock under load {mhz:.0f} MHz (max {max_mhz:.0f}), "
-              f"{sms} SMs: load bound {bound / 1e12:.3f} T/s, {rate / bound:.3f} of it ({card})",
+              f"{what}; SM clock under load {mhz:.0f} MHz (max {max_mhz:.0f}), {sms} SMs ({card})",
               flush=True)
     print(json.dumps(result))
     return 0

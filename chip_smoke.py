@@ -5,12 +5,14 @@
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit.  It builds the port's six kernels from the sources in the
-checkout (one nvcc per source, side by side; where the toolkit has
-cuobjdump, it fails unless cost_volume_mse_block's SASS holds integer
-tensor-core instructions), holds each kernel to its plain PyTorch version
-at the shapes its path gives it and times both, with the bound of the
-kernel's function there (its bytes at the HBM rate or its operations at
-their unit's peak, whichever is larger) and, for the cross volume, one
+checkout (one nvcc per source, side by side, with a one-thread pointer-chase
+probe beside them; where the toolkit has cuobjdump, it fails unless the SASS
+of cost_volume_mse_block and of cost_volume_cross holds integer tensor-core
+instructions), holds each kernel to its plain PyTorch version at the shapes
+its path gives it and times both, with the bound of the kernel's function
+there (its bytes at the HBM rate or its operations at their unit's peak,
+whichever is larger; for the chase also its longest chain of dependent
+loads at the latencies the probe measures) and, for the cross volume, one
 PyTorch call for the same function (a grouped conv2d), and drives each path
 through the entry points a user calls:
 
@@ -96,6 +98,28 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_RATE = {"int8 tensor": INT8_TENSOR_OPS_PER_S, "int32": INT32_OPS_PER_S}
 SSD_MAX = 16 * 16 * 255 ** 2  # the largest block SSD at bs 16
+# The kernels whose SASS must hold integer tensor-core instructions.
+TENSOR_CORE_KERNELS = ("cost_volume_mse_block", "cost_volume_cross")
+
+# One thread following a cycle of dependent int32 loads: the latency of one
+# dependent global load, at the cache level the cycle's working set lives in.
+LATENCY_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void chase_probe_kernel(const int* nxt, int steps, int* out) {
+  int p = 0;
+  for (int i = 0; i < steps; ++i) p = nxt[p];
+  *out = p;
+}
+extern "C" int gme_chase_probe(const void* nxt, int steps, void* out, void* stream) {
+  chase_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(nxt), steps, static_cast<int*>(out));
+  return cudaGetLastError();
+}
+"""
+# The probe's two working sets: one rank-map row of the main path (D 65:
+# 4225 bytes, which stays in L1 once read) and 256 MiB, far past the 50 MB
+# L2, one load per 128-byte line.
+PROBE_ROW_BYTES, PROBE_COLD_BYTES = 65 * 65, 256 * 2**20
 
 # The Pallas kernel each CUDA kernel replaces (kernel body, file:line).
 REPLACES = {
@@ -206,10 +230,10 @@ def tensor_core_instructions(K, library):
     return counts
 
 
-def chase_reads(K, rank, bounds, D, R, iters):
-    """Rank-map bytes the chase must read on these inputs: one a step for
-    each cell, up to the step that finds it at its fixpoint (at most
-    `iters`), from the plain lockstep walk."""
+def chase_loads(K, rank, bounds, D, R, iters):
+    """(C,) rank-map loads of each cell's walk on these inputs: one a step,
+    up to the step that finds it at its fixpoint (at most `iters`), from the
+    plain lockstep walk.  Each load's address depends on the one before."""
     final, _ = K.chase_fixpoint_plain(rank, bounds, D, R, iters)
     moves = final.new_zeros(final.shape, dtype=final.dtype)
     for i in range(iters):
@@ -217,7 +241,18 @@ def chase_reads(K, rank, bounds, D, R, iters):
         if not bool(still.any()):
             break
         moves += still.to(moves.dtype)
-    return int((moves + 1).clamp(max=iters).sum())
+    return (moves + 1).clamp(max=iters)
+
+
+def chase_reads(K, rank, bounds, D, R, iters):
+    """Rank-map bytes the chase must read on these inputs."""
+    return int(chase_loads(K, rank, bounds, D, R, iters).sum())
+
+
+def chain_ms(longest, cold_ms, row_ms):
+    """The least time of the longest walk of `longest` dependent loads: its
+    first load from device memory, the rest from the L1 copy of its row."""
+    return cold_ms + (longest - 1) * row_ms if longest else 0.0
 
 
 def work(K, kernel, args):
@@ -247,8 +282,9 @@ def bound(K, kernel, args, launch_ms=0.0):
     """(bound ms, "bytes" or "operations", what binds): the least time the
     card could take for the kernel's function, the larger of its bytes at
     the HBM rate and its operations at their unit's peak.  What binds is
-    "bytes", "int8 tensor ops" or "int32 ops", or "latency" where one
-    launch, timed as the kernels are (`launch_ms`), takes longer still."""
+    "bytes", "int8 tensor ops" or "int32 ops", or "latency" where the
+    latency floor (`launch_ms`: one launch, timed as the kernels are, or a
+    chain of dependent loads) takes longer still."""
     nbytes, ops, kind = work(K, kernel, args)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_RATE[kind] * 1e3 if kind else 0.0
@@ -274,13 +310,15 @@ def cross_library(torch, p, c, bs, D):
 
 
 def capturing(torch, name, wrapper, captured):
-    """`wrapper` that also keeps a host copy of its arguments the first time
-    it is called at each shape, keyed by (name, shapes and scalars)."""
-    def call(*args):
-        key = (name,) + tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args)
+    """`wrapper` that also keeps a host copy of its arguments (and keyword
+    arguments, such as the cross kernel's `ssd`) the first time it is called
+    at each shape, keyed by (name, shapes and scalars, keywords)."""
+    def call(*args, **kw):
+        key = ((name,) + tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args)
+               + tuple(sorted(kw.items())))
         if key not in captured:
-            captured[key] = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
-        return wrapper(*args)
+            captured[key] = ([a.cpu() if isinstance(a, torch.Tensor) else a for a in args], kw)
+        return wrapper(*args, **kw)
     return call
 
 
@@ -568,6 +606,45 @@ def driver_phase(torch, K, card, launch_log, captured, work, dev):
           f"launches {launch_log['diamond bs20']}")
 
 
+def start_probe_build(K):
+    """Start nvcc on LATENCY_PROBE into the kernels' build directory, beside
+    the kernels' own builds; returns (process, library path)."""
+    os.makedirs(K._BUILD_DIR, exist_ok=True)
+    src = os.path.join(K._BUILD_DIR, f"latency_probe.{os.getpid()}.cu")
+    with open(src, "w") as f:
+        f.write(LATENCY_PROBE)
+    lib = src[:-3] + ".so"
+    cmd = [K.find_nvcc(), *K._ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+           "-o", lib, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_latency(torch, dev, lib_path, nbytes, steps=(2000, 6000)):
+    """ms per dependent load of one thread following a random cycle through
+    `nbytes` of device memory, one int32 per 128-byte line: the slope
+    between two chase lengths, so the launch cancels out."""
+    import ctypes
+
+    lib = ctypes.CDLL(lib_path)
+    lib.gme_chase_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.gme_chase_probe.restype = ctypes.c_int
+    lines = max(nbytes // 128, 2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    perm = (torch.randperm(lines, device=dev, generator=gen) * 32).to(torch.int32)
+    nxt = torch.zeros(lines * 32, dtype=torch.int32, device=dev)
+    nxt[perm.long()] = torch.roll(perm, -1)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def chase(n):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gme_chase_probe(ctypes.c_void_p(nxt.data_ptr()), n,
+                                  ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+        check(err == 0, f"the latency probe did not launch ({err})")
+
+    t0, t1 = (cuda_ms(torch, lambda n=n: chase(n), 3) for n in steps)
+    return (t1 - t0) / (steps[1] - steps[0])
+
+
 def timed(torch, fn, reps=3):
     """Median host time of `fn` over `reps` synchronised calls, after one
     warm-up call whose result is returned."""
@@ -604,8 +681,11 @@ def run(torch):
     phase("device", f"{name}; device_count={count}; torch {torch.__version__} "
           f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
-    # Phase 2: build from the checkout's sources.
+    # Phase 2: build from the checkout's sources (and the latency probe).
+    probe, probe_lib = start_probe_build(K)
     built = K.build(force=True)
+    probe_log = probe.communicate()[0]
+    check(probe.returncode == 0, f"the latency probe did not build: {probe_log[-2000:]}")
     phase("build", f"nvcc {built.seconds:.1f} s -> {os.path.relpath(built.path, HERE)}")
     summary = ptxas_summary(built.log)
     for kernel in K.LAUNCHES:
@@ -613,15 +693,15 @@ def run(torch):
     for name_args, line in sorted(summary.items()):
         phase("build", f"{name_args}: {line}")
     tc = tensor_core_instructions(K, built.path)
-    if tc is None:
-        phase("build", "no cuobjdump in the toolkit: the SASS of cost_volume_mse_block is not read")
-    else:
-        mse = {f: n for f, n in tc.items() if "cost_volume_mse_block_kernel" in f}
-        n_tc = sum(mse.values())
-        phase("build", f"cost_volume_mse_block SASS: {n_tc} integer tensor-core instructions "
-              f"(IMMA/IGMMA) over {len(mse)} instantiations")
-        check(n_tc > 0, "cost_volume_mse_block's SASS holds no IMMA/IGMMA: the tensor-core "
-              "path was not built")
+    for kernel in TENSOR_CORE_KERNELS:
+        if tc is None:
+            phase("build", f"no cuobjdump in the toolkit: the SASS of {kernel} is not read")
+            continue
+        fns = {f: n for f, n in tc.items() if f"{kernel}_kernel" in f}
+        n_tc = sum(fns.values())
+        phase("build", f"{kernel} SASS: {n_tc} integer tensor-core instructions "
+              f"(IMMA/IGMMA) over {len(fns)} instantiations")
+        check(n_tc > 0, f"{kernel}'s SASS holds no IMMA/IGMMA: the tensor-core path was not built")
     K.load_library()
 
     # Inputs at the main path's 720p shapes: the 24-pair synthetic pan.
@@ -636,6 +716,22 @@ def run(torch):
     # are; where it exceeds a function's bound, latency binds.
     launch_ms = cuda_ms(torch, torch.zeros(1, device=dev).zero_, KERNEL_REPS)
     phase("kernels", f"launch floor {launch_ms:.4f} ms (one-element fill, {card})")
+    # The chase's floor: its longest walk as a chain of dependent loads, the
+    # first from device memory, the rest from L1.
+    row_ms = load_latency(torch, dev, probe_lib, PROBE_ROW_BYTES)
+    cold_ms = load_latency(torch, dev, probe_lib, PROBE_COLD_BYTES)
+    phase("kernels", f"dependent load latency (one-thread pointer chase): {row_ms * 1e6:.1f} ns "
+          f"in a {PROBE_ROW_BYTES}-byte rank-map row, {cold_ms * 1e6:.1f} ns across "
+          f"{PROBE_COLD_BYTES >> 20} MiB ({card})")
+
+    def floor_of(kernel, args):
+        """(latency floor ms, chain ms or None): one launch; for the chase
+        the larger of that and its longest walk of dependent loads."""
+        if kernel != "chase_fixpoint":
+            return launch_ms, None
+        chain = chain_ms(int(chase_loads(K, *args).max()), cold_ms, row_ms)
+        return max(launch_ms, chain), chain
+
     records = {k: {"max_abs_err": 0.0} for k in K.LAUNCHES}
     # Each wrapper's plain version, called with the wrapper's arguments.
     plain_of = {
@@ -659,19 +755,22 @@ def run(torch):
         check(equal, f"{kernel} disagrees with its plain version (max_abs_err {err})")
         return err
 
-    def compare(kernel, args, shape_note, main=True, library=None):
-        """Hold the kernel to its plain version on `args` and time both,
-        with the bound of its function there; `library` is one PyTorch call
-        computing the same function (checked equal, then timed).  The
-        record keeps the figures of the main path's shape (`main`)."""
-        run_kernel = lambda: getattr(K, kernel)(*args)  # noqa: E731
-        run_plain = lambda: plain_of[kernel](*args)  # noqa: E731
+    def compare(kernel, args, shape_note, main=True, library=None, kw=None):
+        """Hold the kernel to its plain version on `args` (and keywords
+        `kw`) and time both, with the bound of its function there; `library`
+        is one PyTorch call computing the same function (checked equal, then
+        timed).  The record keeps the figures of the main path's shape
+        (`main`)."""
+        kw = kw or {}
+        run_kernel = lambda: getattr(K, kernel)(*args, **kw)  # noqa: E731
+        run_plain = lambda: plain_of[kernel](*args, **kw)  # noqa: E731
         got = run_kernel()
         err = agree(kernel, got, run_plain())
         ms = cuda_ms(torch, run_kernel, KERNEL_REPS)
         plain_ms = cuda_ms(torch, run_plain, PLAIN_REPS)
-        bound_ms, bound_by, binds = bound(K, kernel, args, launch_ms)
-        share = max(bound_ms, launch_ms) / ms
+        floor, chain = floor_of(kernel, args)
+        bound_ms, bound_by, binds = bound(K, kernel, args, floor)
+        share = max(bound_ms, floor) / ms
         library_ms, note = None, ""
         if library is not None:
             call, to_layout = library
@@ -679,13 +778,17 @@ def run(torch):
             library_ms = cuda_ms(torch, call, PLAIN_REPS)
             note = f", library {library_ms:.4f} ms (equal)"
         del got
+        if chain is not None:
+            note += f", longest walk {chain:.4f} ms as a chain of dependent loads"
         if main:
             records[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                    binds=binds, launch_ms=launch_ms, share=share,
                                    library_ms=library_ms)
-        phase("kernels", f"{kernel} {shape_note}: bit-equal=True max_abs_err={err} "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{note}; bound {bound_ms:.4f} ms "
-              f"by {bound_by}, {binds} binds, share {share:.4f} ({card})")
+            if chain is not None:
+                records[kernel]["chain_ms"] = chain
+        phase("kernels", f"{kernel} {shape_note}{' ' + str(kw) if kw else ''}: bit-equal=True "
+              f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{note}; bound "
+              f"{bound_ms:.4f} ms by {bound_by}, {binds} binds, share {share:.4f} ({card})")
 
     bs0 = cfg.dense_block_size
     R0 = min(cfg.dense_volume_radius, max(prev_pyr[0].shape[1:]))
@@ -737,7 +840,8 @@ def run(torch):
 
     # The level-2 cross volume of the GME step at volume_radius=64: B 8,
     # bs 16, D 129; its yardstick is one grouped conv2d in float32 (exact:
-    # integer sums below 2**24), TF32 off.
+    # integer sums below 2**24), TF32 off.  Then its SSD mode, against the
+    # plain decomposition.
     R64 = 64
     p4, c4 = bbme.volume_inputs(prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], bs, R64)
     D4 = 2 * R64 + 1
@@ -750,8 +854,17 @@ def run(torch):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
-    # The decomposed MSE (cross kernel + int32 box sums) against the direct
-    # MSE volume of the row-offset kernel and the plain version.
+    compare("cost_volume_cross", (p4, c4, bs, D4),
+            f"B={BATCH_SEARCH} {tuple(prev.shape[1:])} bs={bs} D={D4}", main=False,
+            kw={"ssd": True})
+    # The decomposed MSE (one cross-kernel launch in SSD mode) against the
+    # direct MSE volume of the row-offset kernel and the plain version.
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    bbme._dfd_cost_volume(p4, c4, bs, D4, MSE)
+    torch.cuda.synchronize()
+    check(K.LAUNCHES == dict(K.LAUNCHES, cost_volume_cross=1) and sum(K.LAUNCHES.values()) == 1,
+          f"the decomposed MSE is not one cost_volume_cross launch: {K.LAUNCHES}")
     ways = {"decomposed": lambda: bbme._dfd_cost_volume(p4, c4, bs, D4, MSE),
             "direct": lambda: K.cost_volume_rowoffset(p4, c4, bs, D4, MSE)}
     want = K.cost_volume_plain(p4, c4, bs, D4, MSE)
@@ -764,8 +877,8 @@ def run(torch):
         extra = torch.cuda.max_memory_allocated() - base
         notes.append(f"{way} {cuda_ms(torch, fn, KERNEL_REPS):.4f} ms, "
                      f"{extra / 2**30:.2f} GiB above its inputs")
-    phase("kernels", f"MSE B={BATCH_SEARCH} bs={bs} D={D4}: decomposed == direct == "
-          f"plain; {'; '.join(notes)} ({card})")
+    phase("kernels", f"MSE B={BATCH_SEARCH} bs={bs} D={D4}: decomposed (one cost_volume_cross "
+          f"launch, SSD mode) == direct == plain; {'; '.join(notes)} ({card})")
     del p4, c4, want
 
     H, W = prev.shape[1:]
@@ -949,16 +1062,22 @@ def run(torch):
     torch.cuda.empty_cache()
 
     # Phase 11: each kernel against its plain version at every shape the
-    # counted paths gave it, on the paths' own inputs.
+    # counted paths gave it, on the paths' own inputs; the cross kernel in
+    # both modes.
     for key in sorted(captured, key=str):
-        kernel, args = key[0], [a.to(dev) if isinstance(a, torch.Tensor) else a
-                                for a in captured.pop(key)]
-        err = agree(kernel, getattr(K, kernel)(*args), plain_of[kernel](*args))
-        ms = cuda_ms(torch, lambda: getattr(K, kernel)(*args), PLAIN_REPS)
-        bound_ms, bound_by, binds = bound(K, kernel, args, launch_ms)
-        phase("paths", f"{kernel} {key[1:]}: bit-equal=True max_abs_err={err} "
-              f"kernel {ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}, {binds} binds, "
-              f"share {max(bound_ms, launch_ms) / ms:.4f} ({card})")
+        kernel = key[0]
+        host_args, kw = captured.pop(key)
+        args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in host_args]
+        modes = ([{"ssd": False}, {"ssd": True}] if kernel == "cost_volume_cross" and args[2] <= 16
+                 else [kw])
+        for mode in modes:
+            err = agree(kernel, getattr(K, kernel)(*args, **mode), plain_of[kernel](*args, **mode))
+            ms = cuda_ms(torch, lambda: getattr(K, kernel)(*args, **mode), PLAIN_REPS)
+            floor, _ = floor_of(kernel, args)
+            bound_ms, bound_by, binds = bound(K, kernel, args, floor)
+            phase("paths", f"{kernel} {key[1:]}{' ' + str(mode) if mode else ''}: bit-equal=True "
+                  f"max_abs_err={err} kernel {ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
+                  f"{binds} binds, share {max(bound_ms, floor) / ms:.4f} ({card})")
         del args
     for k in K.LAUNCHES:
         check("ms" in records[k], f"{k}: no main-path shape was timed")

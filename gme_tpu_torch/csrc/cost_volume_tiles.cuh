@@ -1,5 +1,6 @@
 // Offset-tiled block-DFD volume: the shared body of cost_volume_rowoffset.cu
-// (MAE / MSE) and cost_volume_cross.cu (the cross term sum prev * curr).
+// (MAE / MSE) and of cost_volume_cross.cu's cross term sum prev * curr at
+// block sizes outside 8..16.
 //
 // Contract of both kernels: prev (B, Hc, Wc) uint8 and curr_pad
 // (B, Hc+D-1, Wc+D-1) uint8, where the window of offset index (dr, dc) is
@@ -10,9 +11,9 @@
 // correctly rounded integer sum above that.  The wrappers refuse block sizes
 // whose sums could overflow int32.
 //
-// Why tiles: these kernels take every shape the two specialised volume
-// kernels do not, from the bs = 2, D = 6 dense init of the exhaustive search
-// to bs = 16, D = 129 at a volume radius of 64, and any D.  A CUDA block
+// Why tiles: these kernels take every shape the tensor-core and small-block
+// volume kernels do not, from the bs = 2, D = 6 dense init of the exhaustive
+// search to MAE at bs 20, D 65, and any D.  A CUDA block
 // owns a tile of CH x CW cells and TR x TC offsets (at most kTileOffsets per
 // side), so no D is too large.  It stages the tile's prev rows and the curr
 // window they meet in shared memory, RC block rows at a time, so no bs is too

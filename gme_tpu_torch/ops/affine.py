@@ -5,23 +5,48 @@ dimension B.  Parameters are (B, 6) float32 [a0, a1, a2, b0, b1, b2] with
 displacement d = [a0 + a1*x + a2*y, b0 + b1*x + b2*y] at cell (x=row, y=col)
 (reference motion.py:91-105).
 
-Exactness: every float expression keeps the JAX operation order as separate
-eager ops, so the port's CPU and CUDA runs agree bit for bit (no op fuses a
-multiply and an add into an FMA, and a division by a tensor is an IEEE
-division on both).  Against the JAX package two things differ.  XLA turns a
-division by a constant count into a multiply by its float32 reciprocal;
-`compute_first_parameters` does the same, so the means match exactly.  XLA
-on the CPU also contracts `a*b + c` into an FMA inside `jit`; the port does
-not, so `params_from_moments` and `affine_model` can differ from JAX by an
-ulp (ROADMAP queue C).  A 1-ulp change in a parameter can flip a `.5`
-rounding in the int16 field.
+Exactness: every float expression is a sequence of separate eager ops, each
+correctly rounded, so the port's CPU and CUDA runs agree bit for bit (a
+division by a tensor is an IEEE division on both).  They also follow what
+the JAX package compiles to under `jit` on an x86 CPU with FMA, bit for
+bit.  XLA turns a division by a constant count into a multiply by its
+float32 reciprocal; `compute_first_parameters` does the same.  XLA:CPU also
+contracts `a*b + c` into one fused multiply-add (the x86 backend does it:
+the optimised LLVM IR has none, the object code does).  `_fma` rounds such
+a term once, as the instruction does.  `params_from_moments` and
+`affine_model` use it exactly where XLA's object code has an FMA, as read
+with `objdump -d` from the objects that `XLA_FLAGS=--xla_dump_to=...`
+leaves for the jitted step.  Off an FMA host XLA rounds every product,
+and the parameters then differ from JAX's by an ulp or so.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c rounded once, like an FMA instruction.
+
+    The product of two float32 values is exact in float64; the sum is taken
+    in float64 with its exact error (two-sum), rounded to odd (an inexact
+    sum with an even last bit moves one float64 ulp towards the exact
+    value) and then rounded to float32 once.  Rounding to odd with 29 spare
+    bits makes the two roundings equal one.  Separate eager ops only, so
+    the CPU and the card agree; callers stack independent terms into one
+    call, since each op is a launch on the card."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    # err * inf is +-inf where the sum is inexact (nan where it is exact,
+    # and not taken there).
+    return torch.where((err != 0) & even, torch.nextafter(s, err * math.inf), s).float()
 
 
 def _cell_coords(nbh: int, nbw: int, dtype, device):
@@ -33,10 +58,11 @@ def _cell_coords(nbh: int, nbw: int, dtype, device):
 def affine_model(x, y, parameters: torch.Tensor) -> torch.Tensor:
     """(B, *x.shape, 2) displacement of positions (x, y) under (B, 6)
     parameters (reference motion.py:91-105)."""
-    p = parameters.to(torch.float32).reshape(parameters.shape[:1] + (6,) + (1,) * x.dim())
-    d0 = p[:, 0] + p[:, 1] * x + p[:, 2] * y
-    d1 = p[:, 3] + p[:, 4] * x + p[:, 5] * y
-    return torch.stack([d0, d1], dim=-1)
+    p = parameters.to(torch.float32).reshape(parameters.shape[:1] + (2, 3) + (1,) * x.dim())
+    # Both products fused, as XLA:CPU fuses them: fma(p2, y, fma(p1, x, p0)),
+    # d0 and d1 in one call each.
+    d = _fma(p[:, :, 2], y, _fma(p[:, :, 1], x, p[:, :, 0]))  # (B, 2, *x.shape)
+    return torch.movedim(d, 1, -1)
 
 
 def get_motion_field_affine(
@@ -115,33 +141,37 @@ def int_moments(
 
 def params_from_moments(moments: torch.Tensor) -> torch.Tensor:
     """Solve the mean-centred affine normal equations from (B, 12) exact
-    moments, in the JAX package's f32 operation order.  Raises on an empty
-    inlier set or a singular system (the JAX package's `guards.check`)."""
-    mom = moments.to(torch.float32)
-    n, Sx, Sy, Sxx, Sxy, Syy = (mom[:, i] for i in range(6))
+    moments, in the f32 operations XLA:CPU compiles the JAX package's
+    function to (each `_fma` one FMA of its object code).  Raises on an
+    empty inlier set or a singular system (the JAX package's
+    `guards.check`).
+
+    The solve runs on the host whatever the moments' device: they are 12
+    numbers a pair, the singular-system check reads them back anyway, and
+    on the card each of its hundred-odd small ops would be a launch."""
+    dev = moments.device
+    mom = moments.cpu().to(torch.float32).T  # (12, B)
+    n, Sx, Sy = mom[0], mom[1], mom[2]
     xbar = Sx / n
     ybar = Sy / n
-    Gxx = Sxx - Sx * xbar
-    Gxy = Sxy - Sx * ybar
-    Gyy = Syy - Sy * ybar
-    det = Gxx * Gyy - Gxy * Gxy
+    # Independent terms share one `_fma` call; each element keeps its own
+    # operation order.
+    Gxx, Gxy, Gyy = _fma(-mom[[1, 1, 2]], torch.stack([xbar, ybar, ybar]), mom[3:6])
+    det = _fma(Gxx, Gyy, -(Gxy * Gxy))
     if bool(((n <= 0) | (det == 0)).any()):
         raise ValueError(
             "affine fit: empty inlier set or singular normal equations "
             "(inlier cells are collinear)"
         )
 
-    def axis_params(Sd, Sxd, Syd):
-        bx = Sxd - xbar * Sd
-        by = Syd - ybar * Sd
-        a1 = (bx * Gyy - by * Gxy) / det
-        a2 = (by * Gxx - bx * Gxy) / det
-        a0 = Sd / n - a1 * xbar - a2 * ybar
-        return a0, a1, a2
-
-    a0, a1, a2 = axis_params(mom[:, 6], mom[:, 7], mom[:, 8])
-    b0, b1, b2 = axis_params(mom[:, 9], mom[:, 10], mom[:, 11])
-    return torch.stack([a0, a1, a2, b0, b1, b2], dim=-1)
+    # Both axes at once: row k of Sd, Sxd, Syd is the axis of d_k.
+    Sd, Sxd, Syd = mom[[6, 9]], mom[[7, 10]], mom[[8, 11]]
+    bx, by = _fma(-torch.stack([xbar, ybar])[:, None], Sd, torch.stack([Sxd, Syd]))
+    a1, a2 = _fma(torch.stack([bx, by]), torch.stack([Gyy, Gxx])[:, None],
+                  -(torch.stack([by, bx]) * Gxy)) / det
+    a0 = _fma(-a2, ybar, _fma(-a1, xbar, Sd / n))
+    # [a0, a1, a2, b0, b1, b2] per pair
+    return torch.stack([a0, a1, a2], dim=1).reshape(6, -1).T.contiguous().to(dev)
 
 
 def fit_normal_equations(

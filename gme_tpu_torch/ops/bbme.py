@@ -127,30 +127,11 @@ def _in_frame(pos: torch.Tensor, bs: int, H: int, W: int) -> torch.Tensor:
 
 def _dfd_cost_volume_mse_decomp(prev_crop, curr_pad, bs: int, D: int) -> torch.Tensor:
     """MSE volume as sum a^2 - 2 sum ab + sum b^2 (JAX
-    pallas_kernels.py:511): the cross term from the cross kernel, the
-    offset-independent terms in plain torch (sum b^2 by block pooling, sum a^2
-    by a sliding box sum of curr^2 read at (t*bs + dr, j*bs + dc)).  Combined
-    in int32 and rounded to float32 once; |sum a^2 - 2 sum ab| < 2**24
-    because it equals the SSD minus sum b^2, so the result is bit-equal to
-    the direct MSE volume."""
-    B, Hc, Wc = prev_crop.shape
-    nbh, nbw = Hc // bs, Wc // bs
-    dev = prev_crop.device
-    p = prev_crop.to(torch.int32)
-    sb = (p * p).reshape(B, nbh, bs, nbw, bs).sum(dim=(2, 4), dtype=torch.int32)
-    c = curr_pad.to(torch.int32)
-    c2 = c * c
-    sa_full = (c2.unfold(1, bs, 1).sum(-1, dtype=torch.int32)
-               .unfold(2, bs, 1).sum(-1, dtype=torch.int32))
-    offs = torch.arange(D, device=dev)
-    rows = (torch.arange(nbh, device=dev) * bs)[:, None] + offs  # (nbh, D)
-    cols = (torch.arange(nbw, device=dev) * bs)[:, None] + offs  # (nbw, D)
-    sa = sa_full[:, rows][:, :, :, cols]  # (B, nbh, D_dr, nbw, D_dc)
-    vol = sa.permute(0, 1, 3, 2, 4).reshape(B, nbh, nbw, D * D)
-    del sa
-    cross = cuda_kernels.cost_volume_cross(prev_crop, curr_pad, bs, D)
-    vol.sub_(cross.to(torch.int32).mul_(2)).add_(sb[..., None])
-    return vol.to(torch.float32)
+    pallas_kernels.py:511), in int32, rounded to float32 once: bit-equal to
+    the direct MSE volume.  On a CUDA tensor one launch of the cross kernel,
+    which forms sum a^2 and sum b^2 in its epilogue; on the CPU its plain
+    version, the decomposition in plain torch."""
+    return cuda_kernels.cost_volume_cross(prev_crop, curr_pad, bs, D, ssd=True)
 
 
 def _dfd_cost_volume(prev_crop, curr_pad, bs: int, D: int, pnorm: int):

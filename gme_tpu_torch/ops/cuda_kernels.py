@@ -58,7 +58,7 @@ _SOURCES = (
     "warp_block_field.cu",
     "errors.cu",
 )
-_HEADERS = ("gme_kernels.cuh", "cost_volume_tiles.cuh")
+_HEADERS = ("gme_kernels.cuh", "cost_volume_tiles.cuh", "cost_volume_mma.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = _ARCH + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -164,7 +164,7 @@ def load_library() -> ctypes.CDLL:
         lib.gme_cost_volume_small_block.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.gme_cost_volume_mse_block.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.gme_cost_volume_rowoffset.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        lib.gme_cost_volume_cross.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.gme_cost_volume_cross.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.gme_chase_fixpoint.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gme_warp_block_field.argtypes = [p, p, p, i, i, i, i, i, i, p]
         for fn in (lib.gme_cost_volume_small_block, lib.gme_cost_volume_mse_block,
@@ -277,11 +277,38 @@ def cost_volume_plain(
 
 
 def cost_volume_cross_plain(
-    prev_crop: torch.Tensor, curr_pad: torch.Tensor, bs: int, D: int
+    prev_crop: torch.Tensor, curr_pad: torch.Tensor, bs: int, D: int, ssd: bool = False
 ) -> torch.Tensor:
     """Plain version of the cross kernel: entry dr*D + dc = block sum of
-    prev * curr_pad[dr:dr+Hc, dc:dc+Wc], the same layout and rounding."""
-    return _volume_plain(prev_crop, curr_pad, bs, D, torch.mul)
+    prev * curr_pad[dr:dr+Hc, dc:dc+Wc], the same layout and rounding.
+
+    With `ssd`, the MSE volume as the JAX package decomposes it
+    (pallas_kernels.py:511): sum a^2 - 2 sum ab + sum b^2, the cross term
+    as without `ssd`, sum b^2 by block pooling and sum a^2 by a sliding box
+    sum of curr^2 read at (t*bs + dr, j*bs + dc).  Combined in int32 and
+    rounded to float32 once; |sum a^2 - 2 sum ab| < 2**24 because it equals
+    the SSD minus sum b^2, so at bs <= 16 it is bit-equal to the direct MSE
+    volume."""
+    if not ssd:
+        return _volume_plain(prev_crop, curr_pad, bs, D, torch.mul)
+    B, Hc, Wc = prev_crop.shape
+    nbh, nbw = Hc // bs, Wc // bs
+    dev = prev_crop.device
+    i32 = torch.int32
+    p = prev_crop.to(i32)
+    sb = (p * p).reshape(B, nbh, bs, nbw, bs).sum(dim=(2, 4), dtype=i32)
+    c = curr_pad.to(i32)
+    c2 = c * c
+    sa_full = c2.unfold(1, bs, 1).sum(-1, dtype=i32).unfold(2, bs, 1).sum(-1, dtype=i32)
+    offs = torch.arange(D, device=dev)
+    rows = (torch.arange(nbh, device=dev) * bs)[:, None] + offs  # (nbh, D)
+    cols = (torch.arange(nbw, device=dev) * bs)[:, None] + offs  # (nbw, D)
+    sa = sa_full[:, rows][:, :, :, cols]  # (B, nbh, D_dr, nbw, D_dc)
+    vol = sa.permute(0, 1, 3, 2, 4).reshape(B, nbh, nbw, D * D)
+    del sa
+    cross = _volume_plain(prev_crop, curr_pad, bs, D, torch.mul)
+    vol.sub_(cross.to(i32).mul_(2)).add_(sb[..., None])
+    return vol.to(torch.float32)
 
 
 def cost_volume_small_block(
@@ -367,24 +394,29 @@ def cost_volume_rowoffset(
 
 
 def cost_volume_cross(
-    prev_crop: torch.Tensor, curr_pad: torch.Tensor, bs: int, D: int
+    prev_crop: torch.Tensor, curr_pad: torch.Tensor, bs: int, D: int, ssd: bool = False
 ) -> torch.Tensor:
     """(B, nbh, nbw, D*D) float32 block cross-correlation: entry dr*D + dc is
     the block sum of prev * curr_pad[dr:dr+Hc, dc:dc+Wc], for any D and
-    bs <= 181; exact to bs 16.
+    bs <= 181; exact to bs 16.  With `ssd` (bs <= 16), the MSE volume
+    sum a^2 - 2 sum ab + sum b^2, formed in the kernel's epilogue.
 
-    Replaces pallas_kernels.py:_cross_volume_kernel; integer-op bound on the
-    H100, offset-tiled (see csrc/cost_volume_cross.cu)."""
+    Replaces pallas_kernels.py:_cross_volume_kernel; bound by its output
+    writes on the H100, the cross term on the u8 tensor cores in bands of
+    offset rows at 8 <= bs <= 16, offset-tiled at other block sizes (see
+    csrc/cost_volume_cross.cu)."""
     _check_block_sum(bs, MSE, D)
+    if ssd and bs > 16:
+        raise ValueError(f"cost_volume_cross takes ssd only to bs 16, where it is exact; got bs={bs}")
     B, nbh, nbw = _check_volume_inputs(prev_crop, curr_pad, bs, D)
     if _on_cpu(prev_crop, curr_pad):
-        return cost_volume_cross_plain(prev_crop, curr_pad, bs, D)
+        return cost_volume_cross_plain(prev_crop, curr_pad, bs, D, ssd)
     out = torch.empty((B, nbh, nbw, D * D), dtype=torch.float32, device=prev_crop.device)
     if out.numel():
         Hc, Wc = prev_crop.shape[1:]
         _launch("cost_volume_cross", load_library().gme_cost_volume_cross,
                 prev_crop.device, _ptr(prev_crop), _ptr(curr_pad), _ptr(out),
-                B, Hc, Wc, bs, D)
+                B, Hc, Wc, bs, D, int(bool(ssd)))
     return out
 
 

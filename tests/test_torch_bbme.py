@@ -27,6 +27,7 @@ import gme_tpu_torch
 from gme_tpu_torch.config import EXHAUSTIVE, MAE, MSE, TWODLOG, BBMEConfig, GMEConfig
 from gme_tpu_torch.models import hierarchical_bbme as thier
 from gme_tpu_torch.ops import bbme as tbbme
+from test_torch_ops import PARAM_ATOL
 
 GOLDEN_CASES = [(sp, pn, bs, sw) for sp in range(4) for pn in (MAE, MSE)
                 for bs, sw in ((4, 2), (8, 4), (12, 8))]
@@ -111,7 +112,7 @@ def test_pipeline_passes_search_window_to_the_search():
     for k in ("model_motion_field", "compensated", "diff_curr_comp", "volume_edge_hits"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
     np.testing.assert_allclose(got["parameters"].numpy(), np.asarray(want["parameters"]),
-                               rtol=0, atol=1e-5)
+                               rtol=0, atol=PARAM_ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -74,6 +74,37 @@ def test_chase_bound_counts_the_walk():
     assert (nbytes, ops) == (21 * C + reads, 0)
 
 
+def test_chase_chain_is_the_longest_walk():
+    """The chase's latency floor: its longest walk of dependent loads, the
+    first from device memory, the rest from L1."""
+    rng = np.random.RandomState(2)
+    C, R = 40, 4
+    D = 2 * R + 1
+    rank = torch.from_numpy(rng.randint(0, 9, (C, D * D)).astype(np.int8))
+    bounds = torch.tensor([[-R, R, -R, R]] * C, dtype=torch.int32)
+    loads = chip_smoke.chase_loads(K, rank, bounds, D, R, 64)
+    assert int(loads.sum()) == chip_smoke.chase_reads(K, rank, bounds, D, R, 64)
+    assert 1 <= int(loads.min()) and int(loads.max()) <= 64
+    longest = int(loads.max())
+    assert chip_smoke.chain_ms(longest, 6e-4, 2e-5) == pytest.approx(6e-4 + (longest - 1) * 2e-5)
+    assert chip_smoke.chain_ms(0, 6e-4, 2e-5) == 0.0
+
+
+def test_capturing_keeps_the_ssd_keyword():
+    """`counted()` keeps the cross kernel's mode, so that `[paths]` holds
+    each capture to the right plain version."""
+    rng = np.random.RandomState(3)
+    bs, D = 8, 9
+    p = torch.from_numpy(rng.randint(0, 256, (1, 16, 24)).astype(np.uint8))
+    c = torch.from_numpy(rng.randint(0, 256, (1, 16 + D - 1, 24 + D - 1)).astype(np.uint8))
+    captured = {}
+    call = chip_smoke.capturing(torch, "cost_volume_cross", K.cost_volume_cross, captured)
+    out = call(p, c, bs, D, ssd=True)
+    (key, (args, kw)), = captured.items()
+    assert key[-1] == ("ssd", True) and kw == {"ssd": True} and args[2:] == [bs, D]
+    assert torch.equal(out, K.cost_volume_plain(p, c, bs, D, MSE))
+
+
 def test_cross_library_equals_the_cross_volume():
     """The grouped conv2d yardstick computes the cross volume exactly."""
     rng = np.random.RandomState(1)

@@ -164,6 +164,51 @@ def test_cost_volume_cross(cuda, bs, Hc, Wc, D):
         assert torch.equal(decomp.cpu(), direct)
 
 
+@pytest.mark.parametrize("kind", FRAME_KINDS)
+@pytest.mark.parametrize("ssd", [False, True])
+@pytest.mark.parametrize("bs", range(8, 17))
+def test_cost_volume_cross_bands(cuda, bs, ssd, kind):
+    """The u8 tensor-core kernel in bands of offset rows at every bs
+    template, D = 145 - bs (bs + D - 1 = 144 > 128; 3 or 4 bands, some
+    short), on 2 x 5 cells, B 3 (B 1 for constant frames), bit for bit
+    against its plain version; in SSD mode also against the direct MSE."""
+    D = 145 - bs
+    rng = np.random.RandomState(bs * 1000 + D + ssd)
+    B = 1 if kind == "constant" else 3
+    prev, cpad = (t.to(cuda) for t in _volume_frames(kind, rng, B, 2 * bs, 5 * bs, D))
+    got = K.cost_volume_cross(prev, cpad, bs, D, ssd=ssd)
+    assert torch.equal(got, K.cost_volume_cross_plain(prev, cpad, bs, D, ssd))
+    if ssd:
+        assert torch.equal(got, K.cost_volume_plain(prev, cpad, bs, D, MSE))
+        assert torch.equal(got, K.cost_volume_rowoffset(prev, cpad, bs, D, MSE))
+
+
+@pytest.mark.parametrize("B,nbh,nbw", [(1, 3, 7), (3, 2, 5)])
+@pytest.mark.parametrize("D", [1, 5, 8, 9, 17, 33, 65, 100, 128])
+@pytest.mark.parametrize("bs", [8, 11, 16])
+def test_cost_volume_cross_small_windows(cuda, bs, D, B, nbh, nbw):
+    """The tensor-core kernel where the window fits one band (D 1 to 128),
+    on ragged cell counts, in both modes."""
+    rng = np.random.RandomState(bs * 1000 + D * 10 + B)
+    prev, cpad = (t.to(cuda) for t in _volume_frames("random", rng, B, nbh * bs, nbw * bs, D))
+    assert torch.equal(K.cost_volume_cross(prev, cpad, bs, D),
+                       K.cost_volume_cross_plain(prev, cpad, bs, D))
+    assert torch.equal(K.cost_volume_cross(prev, cpad, bs, D, ssd=True),
+                       K.cost_volume_plain(prev, cpad, bs, D, MSE))
+
+
+@pytest.mark.parametrize("bs,D", [(8, 129), (16, 129), (16, 113)])
+def test_cost_volume_cross_extremes(cuda, bs, D):
+    """All-0 prev blocks against all-255 windows, and the reverse: the SSD
+    is bs^2 * 255^2 everywhere (16,646,400 at bs 16), the cross term 0."""
+    for lo, hi in ((0, 255), (255, 0)):
+        prev = torch.full((2, 2 * bs, 3 * bs), lo, dtype=torch.uint8, device=cuda)
+        cpad = torch.full((2, 2 * bs + D - 1, 3 * bs + D - 1), hi, dtype=torch.uint8, device=cuda)
+        ssd = K.cost_volume_cross(prev, cpad, bs, D, ssd=True)
+        assert float(ssd.min()) == float(ssd.max()) == bs * bs * 255 ** 2
+        assert float(K.cost_volume_cross(prev, cpad, bs, D).abs().max()) == 0
+
+
 def test_cost_volume_rowoffset_largest_block_sum(cuda):
     """The largest MSE block the int32 sums take, bs 181, in one tile."""
     bs, D = 181, 2

@@ -239,54 +239,85 @@ def test_wrappers_check_inputs():
                             torch.zeros((1, 182, 182), dtype=torch.uint8), 182, 1)
     with pytest.raises(ValueError, match="pnorm"):
         K.cost_volume_rowoffset(prev, cpad, 2, 9, 3)
+    with pytest.raises(ValueError, match="ssd"):
+        K.cost_volume_cross(torch.zeros((1, 20, 20), dtype=torch.uint8),
+                            torch.zeros((1, 20, 20), dtype=torch.uint8), 20, 1, ssd=True)
     with pytest.raises(ValueError, match="device"):
         K.warp_block_field(torch.zeros((1, 16, 16), dtype=torch.uint8, device="meta"),
                            torch.zeros((1, 2, 2, 2), dtype=torch.int32, device="meta"), 8)
 
 
 # ---------------------------------------------------------------------------
-# CPU models of the two redesigned volume kernels' layouts
+# CPU models of the redesigned volume kernels' layouts
 # ---------------------------------------------------------------------------
 
-def _mma_tiling_mse(prev, cpad, bs, D):
-    """The MSE volume exactly as csrc/cost_volume_mse_block.cu lays it out,
-    in plain int32 torch.  Per cell: the (bs+D-1)^2 window zero-padded to
-    the kernel's row stride S = 8G + 28 (G = ceil(D/8)); for each prev row r
-    the A operand A[(dr, g), c'] = W[r + dr, 8g + c'] (rows m = dr*G + g,
-    padded to a multiple of 16, padded rows reading row 0) times the 8-wide
+def _band_rows(D, band_outputs=5632):
+    """Offset rows per CUDA block of csrc/cost_volume_cross.cu: near-equal
+    bands whose (R, D) stage holds at most about `band_outputs` outputs."""
+    bands = -(-D * D // band_outputs)
+    return -(-D // bands)
+
+
+def _mma_bands(prev, cpad, bs, D, Rb, ssd=True):
+    """The volume exactly as csrc/cost_volume_mma.cuh lays it out, in plain
+    int32 torch, in bands of Rb offset rows (Rb = D: the one band of
+    cost_volume_mse_block).  Per (cell, band of rows dr0 .. dr0+R-1): the
+    band's (bs+R-1) x (bs+D-1) window zero-padded to the kernel's row stride
+    S = 8G + 24 rounded up to 16 (G = ceil(D/8)); for each prev row r the A
+    operand A[(dr, g), c'] = W[r + dr, 8g + c'] (rows m = dr*G + g, padded
+    to a multiple of 16, padded rows reading row 0) times the 8-wide
     Toeplitz band B[c', n] = P[r, c' - n]; the sum over r is the cross term
-    at dc = 8g + n, columns dc >= D and padded rows dropped.  Epilogue:
-    box sums of W^2 (row sums over bs columns, then column sums over bs
-    rows) - 2 * cross + sum P^2, stored as float32."""
+    at (dr0 + dr, 8g + n), columns dc >= D and padded rows dropped.
+    Epilogue: the cross term, or (ssd) the box sums of W^2 (column sums over
+    bs rows, then sliding sums over bs columns) - 2 * cross + sum P^2.  Each
+    band's R*D outputs are one run, stored as a ragged head, aligned quads
+    and a ragged tail; the model checks that every output is stored once."""
     B, Hc, Wc = prev.shape
     Hp, Wp = cpad.shape[1:]
     nbh, nbw = Hc // bs, Wc // bs
     K, G = bs + D - 1, (D + 7) // 8
-    S, M = 8 * G + 28, D * G
-    Mp = (M + 15) // 16 * 16
-    win = cpad.contiguous().as_strided((B, nbh, nbw, K, K), (Hp * Wp, bs * Wp, bs, Wp, 1))
-    win = torch.nn.functional.pad(win.to(torch.int32), (0, S - K))  # (B, nbh, nbw, K, S)
-    P = prev.reshape(B, nbh, bs, nbw, bs).permute(0, 1, 3, 2, 4).to(torch.int32)
-    m = torch.arange(Mp)
-    m = torch.where(m < M, m, 0)
-    dr, g = m // G, m % G
-    cols = 8 * g[:, None] + torch.arange(32)                    # (Mp, 32)
-    c = torch.arange(32)[:, None] - torch.arange(8)[None, :]    # c' - n, (32, 8)
-    band = (c >= 0) & (c < bs)
-    cross = torch.zeros((B, nbh, nbw, Mp, 8), dtype=torch.int32)
-    for r in range(bs):
-        A = win[..., r + dr[:, None], cols]                     # (B, nbh, nbw, Mp, 32)
-        Bm = P[..., r, :][..., c.clamp(0, bs - 1)] * band       # (B, nbh, nbw, 32, 8)
-        assert A.dtype == Bm.dtype == torch.int32
-        cross += A @ Bm
-    cross = cross[..., :M, :].reshape(B, nbh, nbw, D, 8 * G)[..., :D]
-    sq = win[..., :K] ** 2
+    S = (8 * G + 24 + 15) & ~15
     i32 = torch.int32
-    box = sq.unfold(-1, bs, 1).sum(-1, dtype=i32).unfold(-2, bs, 1).sum(-1, dtype=i32)
+    P = prev.reshape(B, nbh, bs, nbw, bs).permute(0, 1, 3, 2, 4).to(i32)
+    c = torch.arange(32)[:, None] - torch.arange(8)[None, :]    # c' - n, (32, 8)
+    toeplitz = [P[..., r, :][..., c.clamp(0, bs - 1)] * ((c >= 0) & (c < bs)) for r in range(bs)]
     sb2 = (P ** 2).sum((-2, -1), dtype=i32)
-    ssd = box - 2 * cross + sb2[..., None, None]
-    assert ssd.dtype == torch.int32
-    return ssd.to(torch.float32).reshape(B, nbh, nbw, D * D)
+    out = torch.full((B * nbh * nbw * D * D,), float("nan"))
+    stores = torch.zeros(out.shape, dtype=i32)
+    cpad = cpad.contiguous()
+    for dr0 in range(0, D, Rb):
+        R = min(Rb, D - dr0)
+        win = cpad.as_strided((B, nbh, nbw, bs + R - 1, K), (Hp * Wp, bs * Wp, bs, Wp, 1), dr0 * Wp)
+        win = torch.nn.functional.pad(win.to(i32), (0, S - K))  # (B, nbh, nbw, bs+R-1, S)
+        M = R * G
+        m = torch.arange(-(-M // 16) * 16)
+        m = torch.where(m < M, m, 0)
+        dr, g = m // G, m % G
+        cols = 8 * g[:, None] + torch.arange(32)                # (Mp, 32)
+        cross = torch.zeros((B, nbh, nbw, len(m), 8), dtype=i32)
+        for r in range(bs):
+            A = win[..., r + dr[:, None], cols]                 # (B, nbh, nbw, Mp, 32)
+            assert A.dtype == toeplitz[r].dtype == i32
+            cross += A @ toeplitz[r]
+        res = cross[..., :M, :].reshape(B, nbh, nbw, R, 8 * G)[..., :D]
+        if ssd:
+            sq = win[..., :K] ** 2
+            box = sq.unfold(-2, bs, 1).sum(-1, dtype=i32).unfold(-1, bs, 1).sum(-1, dtype=i32)
+            res = box - 2 * res + sb2[..., None, None]
+        assert res.dtype == i32
+        n = R * D
+        for cell, vals in enumerate(res.to(torch.float32).reshape(-1, n)):
+            first = cell * D * D + dr0 * D
+            head = min((4 - first % 4) % 4, n)
+            nvec = (n - head) // 4
+            tail = head + 4 * nvec
+            assert (first + head) % 4 == 0
+            f = torch.cat([torch.arange(head), head + torch.arange(4 * nvec),
+                           torch.arange(tail, min(tail + 3, n))])
+            out[first + f] = vals[f]
+            stores[first + f] += 1
+    assert bool((stores == 1).all())
+    return out.reshape(B, nbh, nbw, D * D)
 
 
 MMA_SHAPES = ([(bs, D) for bs in (8, 10, 13, 16) for D in (8, 9, 25, 65)]
@@ -309,10 +340,30 @@ def test_mma_tiling_model_equals_plain_mse(rng, kind, bs, D):
     equals the plain MSE volume bit for bit (2 x 3 cells; all-0 against
     all-255 reaches the 16,646,400 maximum at bs 16)."""
     prev, cpad = _frames(kind, rng, 2 if kind == "random" else 1, 2 * bs, 3 * bs, D)
-    got = _mma_tiling_mse(prev, cpad, bs, D)
+    got = _mma_bands(prev, cpad, bs, D, D)
     assert torch.equal(got, K.cost_volume_plain(prev, cpad, bs, D, MSE))
     if kind != "random":
         assert float(got.max()) == bs * bs * 255 ** 2
+
+
+@pytest.mark.parametrize("kind", ["random", "0-255", "255-0"])
+@pytest.mark.parametrize("bs,D", [(bs, D) for bs in (8, 12, 16) for D in (113, 121, 129)])
+def test_mma_band_model_equals_plain_volumes(rng, kind, bs, D):
+    """cost_volume_cross's tensor-core layout in bands of offset rows (D 113
+    and 121 end in a short band), modelled in int32, equals the plain cross
+    volume and, in SSD mode, the plain MSE volume bit for bit (2 x 3
+    cells)."""
+    prev, cpad = _frames(kind, rng, 2 if kind == "random" else 1, 2 * bs, 3 * bs, D)
+    Rb = _band_rows(D)
+    assert -(-D // Rb) == 3 and (D % Rb > 0) == (D != 129)
+    cross = _mma_bands(prev, cpad, bs, D, Rb, ssd=False)
+    assert torch.equal(cross, K.cost_volume_cross_plain(prev, cpad, bs, D))
+    ssd = _mma_bands(prev, cpad, bs, D, Rb)
+    assert torch.equal(ssd, K.cost_volume_plain(prev, cpad, bs, D, MSE))
+    assert torch.equal(K.cost_volume_cross(prev, cpad, bs, D, ssd=True), ssd)
+    if kind != "random":
+        assert float(ssd.min()) == float(ssd.max()) == bs * bs * 255 ** 2
+        assert float(cross.max()) == 0
 
 
 def _small_block_walk(B, nbh, nbw, bs, D, threads=256, outputs_per_block=8192):

@@ -32,6 +32,7 @@ from gme_tpu_torch.config import (
 from gme_tpu_torch.models.gme import gme_pipeline_batch
 from gme_tpu_torch.ops import bbme
 from gme_tpu_torch.ops import cuda_kernels
+from test_torch_ops import PARAM_ATOL
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -122,7 +123,8 @@ def _pairs():
                                   "dense_motion_estimation"])
 def test_model_functions_equal_jax(name):
     """Each function on a batch equals the JAX function on each pair:
-    parameters to 1e-5 (ROADMAP queue C), integers exactly."""
+    parameters exactly where the host has FMA (else to 1e-5, ROADMAP queue
+    C), integers exactly."""
     prev, curr = _pairs()
     jcfg = JaxGMEConfig(search_impl="volume")
     got = getattr(tgme, name)(torch.from_numpy(prev), torch.from_numpy(curr), GMEConfig())
@@ -130,7 +132,7 @@ def test_model_functions_equal_jax(name):
     want = np.asarray(jax.jit(jax.vmap(lambda p, c: jax_fn(p, c, jcfg)))(
         jnp.asarray(prev), jnp.asarray(curr)))
     if got.dtype == torch.float32:
-        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=PARAM_ATOL, err_msg=name)
     else:
         np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
     field, diag = tgme.dense_motion_estimation(torch.from_numpy(prev), torch.from_numpy(curr),
@@ -178,7 +180,7 @@ def test_unported_configs_raise(cfg, item):
     for k in ("model_motion_field", "compensated", "diff_curr_comp", "volume_edge_hits"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
     np.testing.assert_allclose(got["parameters"].numpy(), np.asarray(want["parameters"]),
-                               rtol=0, atol=1e-5)
+                               rtol=0, atol=PARAM_ATOL)
 
 
 def test_unported_searches_raise():
