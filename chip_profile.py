@@ -14,9 +14,15 @@ volume radius of 64 on 8 pairs, the default step on 24 pairs) it prints:
   the device's own activity (kernels, copies, fills) that `torch.profiler`
   records, not the CPU-side operator rows, which hold their kernels' time a
   second time;
-- the idle share, 1 - busy / host time, and the largest device items.
+- the idle share, 1 - busy / host time, and the largest device items;
+- the peak device memory of that call.
 
-Then it runs two volume kernels at their paths' shapes while nvidia-smi
+Then it reads the latency-bound kernels at the default step's 720p shapes
+(the rank-map chase `chase_fixpoint`, the volume chase `chase_volume` where
+the package has it, and `warp_block_field`) and the launch floor (a
+one-element fill) three ways: CUDA events around a loop of wrapper calls,
+the device's own duration from torch.profiler, and the wrapper's host time
+a call.  Then it runs two volume kernels at their paths' shapes while nvidia-smi
 samples the SM clock: the offset-tiled `cost_volume_rowoffset`, whose pixel
 terms per second it holds against the shared-memory load bound at that
 clock (two byte loads per term, one warp-wide load per clock per SM), and
@@ -35,7 +41,7 @@ import time
 import numpy as np
 
 from chip_smoke import (BATCH_720P, BATCH_SEARCH, CLI_BS, CLI_SW, GME_OPTIONS, PAN_STEP,
-                        SEARCH_NAMES, bound, cuda_ms, synthetic_pan)
+                        SEARCH_NAMES, bound, cuda_ms, device_ms, host_us, synthetic_pan)
 
 
 def smi(*fields):
@@ -74,9 +80,11 @@ def profile_path(torch, fn, reps):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     busy_us, by_name = busy_intervals(torch, prof)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device activity")
@@ -84,7 +92,7 @@ def profile_path(torch, fn, reps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "walls_ms": [w * 1e3 for w in walls],
             "device_busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e3 / wall_ms,
-            "top_ms": [[name[:60], us / 1e3] for name, us in top]}
+            "peak_gib": peak / 2**30, "top_ms": [[name[:60], us / 1e3] for name, us in top]}
 
 
 def clocked(torch, fn, seconds=2.0):
@@ -106,6 +114,43 @@ def clocked(torch, fn, seconds=2.0):
         raise RuntimeError(f"nvidia-smi gave too few SM clock samples: {out!r}")
     under_load = float(np.median(mhz[1:-1]))
     return under_load, float(smi("clocks.max.sm").split()[0])
+
+
+def latency_bound_kernels(torch, K, bbme, prev, curr, cfg, dev, card, reps=10):
+    """{name: {ms, device_ms, host_us}} of the launch floor and the
+    latency-bound kernels at the default step's level-2 shapes."""
+    from gme_tpu_torch.config import MSE
+
+    H, W = prev.shape[1:]
+    bs, R = cfg.block_size, cfg.volume_radius
+    D = 2 * R + 1
+    volume = bbme.compute_cost_volume(prev, curr, bs, R, MSE)
+    origins = bbme._block_origins(H // bs, W // bs, bs, dev)
+    rank = bbme._succ_map(volume, origins, H, W, bs, R).reshape(-1, D * D)
+    og = origins.expand(volume.shape[:-1] + (2,)).reshape(-1, 2)
+    bounds = torch.stack([-og[:, 0], (H - bs - 1) - og[:, 0], -og[:, 1], (W - bs - 1) - og[:, 1]],
+                         dim=1).to(torch.int32).contiguous()
+    volume = volume.reshape(-1, D * D)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = torch.randint(-40, 41, (prev.shape[0], H // bs, W // bs, 2), dtype=torch.int32,
+                      device=dev, generator=gen)
+    iters = cfg.max_search_iters
+    calls = {"launch floor": torch.zeros(1, device=dev).zero_,
+             "chase_fixpoint": lambda: K.chase_fixpoint(rank, bounds, D, R, iters)}
+    if "chase_volume" in K.LAUNCHES:
+        calls["chase_volume"] = lambda: K.chase_volume(volume, bounds, D, R, iters, True)
+    calls["warp_block_field"] = lambda: K.warp_block_field(prev, d, bs)
+    out = {}
+    for name, fn in calls.items():
+        ms = cuda_ms(torch, fn, reps)
+        dev_ms, names = device_ms(torch, fn, reps)
+        us = host_us(torch, fn, reps)
+        out[name] = {"ms": ms, "device_ms": dev_ms, "host_us": us, "device_items": names}
+        print(f"[latency] {name}: {ms:.4f} ms (events around a loop of {reps} calls), device "
+              f"{dev_ms:.4f} ms (torch.profiler: {', '.join(n[:48] for n in names)}), host "
+              f"{us:.1f} us a call; C={bounds.shape[0]} D={D}, warp B={prev.shape[0]} "
+              f"{(H, W)} bs={bs} ({card})", flush=True)
+    return out
 
 
 def main():
@@ -148,8 +193,12 @@ def main():
         result["paths"][path] = r
         top = ", ".join(f"{n} {ms:.2f}" for n, ms in r["top_ms"])
         print(f"[path] {path}: host {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
-              f"idle {r['idle_share']:.3f} ({card}); largest: {top}", flush=True)
+              f"idle {r['idle_share']:.3f}, peak {r['peak_gib']:.2f} GiB ({card}); largest: {top}",
+              flush=True)
         torch.cuda.empty_cache()
+
+    result["latency"] = latency_bound_kernels(torch, K, bbme, prev, curr, cfg, dev, card)
+    torch.cuda.empty_cache()
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     R3 = bbme.threestep_search_radius(CLI_BS, CLI_SW)

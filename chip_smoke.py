@@ -4,17 +4,22 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
-the CUDA toolkit.  It builds the port's six kernels from the sources in the
-checkout (one nvcc per source, side by side, with a one-thread pointer-chase
-probe beside them; where the toolkit has cuobjdump, it fails unless the SASS
-of cost_volume_mse_block and of cost_volume_cross holds integer tensor-core
-instructions), holds each kernel to its plain PyTorch version at the shapes
-its path gives it and times both, with the bound of the kernel's function
-there (its bytes at the HBM rate or its operations at their unit's peak,
-whichever is larger; for the chase also its longest chain of dependent
-loads at the latencies the probe measures) and, for the cross volume, one
-PyTorch call for the same function (a grouped conv2d), and drives each path
-through the entry points a user calls:
+the CUDA toolkit.  It builds the port's seven kernels from the sources in
+the checkout (one nvcc per source, side by side, with a one-thread
+pointer-chase probe beside them; where the toolkit has cuobjdump, it fails
+unless the SASS of cost_volume_mse_block and of cost_volume_cross holds
+integer tensor-core instructions), holds each kernel to its plain PyTorch
+version at the shapes its path gives it (the volume chase also to the
+rank-map chase on the rank map, at the 720p level-2, dense-init, radius-64
+and bs-20 shapes, cut at 1, 3 and 4096 steps) and times both, with the
+bound of the kernel's function there (its bytes at the HBM rate or its
+operations at their unit's peak, whichever is larger; for the chases also
+their longest chain of dependent loads at the latencies the probe measures)
+and, for the cross volume, one PyTorch call for the same function (a
+grouped conv2d).  Each kernel's time is read twice: CUDA events around a
+loop of wrapper calls, and the device's own duration of the kernel from
+torch.profiler, beside the wrapper's host time a call.  Then it drives each
+path through the entry points a user calls:
 
 - the block-matching goldens (`bbme_synthetic.npz`, both engines, and
   `hierarchical_bbme.npz`) on the card;
@@ -33,9 +38,10 @@ through the entry points a user calls:
   207-frame 240p pan; and the volume-engine diamond at block size 20.
 
 Each 720p path runs with the launch counts set to 0 just before it and read
-just after, and fails unless every kernel of that path launched.  Meanwhile
-each kernel's arguments are kept at every shape the path gives it, and at
-the end each kernel is held against its plain version on them.  It prints one
+just after, and fails unless every kernel of that path launched and no rank
+map was built.  Meanwhile each kernel's arguments are kept at every shape
+the path gives it (for the volume chase, a fixed subset of the cells), and
+at the end each kernel is held against its plain version on them.  It prints one
 line per phase.  The last lines are a JSON record of the kernels, the
 card's name and power limit from nvidia-smi, and `{"ok": true, "device":
 {...}}`.  Any failure exits non-zero before that last line; without a CUDA
@@ -75,10 +81,10 @@ GME_OPTIONS = {
     "sp2": ({"searching_procedure": 2},
             ("cost_volume_small_block", "cost_volume_mse_block", "warp_block_field")),
     "R64": ({"volume_radius": 64},
-            ("cost_volume_small_block", "cost_volume_cross", "chase_fixpoint",
+            ("cost_volume_small_block", "cost_volume_cross", "chase_volume",
              "warp_block_field")),
 }
-DEFAULT_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block", "chase_fixpoint",
+DEFAULT_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block", "chase_volume",
                    "warp_block_field")
 # The results driver: a 97-frame 720p pan (96 pairs, four batches of 24);
 # a 25-frame 720p clip that alternately holds still and pans ADAPTIVE_PAN
@@ -88,6 +94,13 @@ DRIVER_FRAMES, DRIVER_HW = BATCH_720P * 4 + 1, (720, 1280)
 ADAPTIVE_FRAMES, ADAPTIVE_PAN, ADAPTIVE_BAR = BATCH_720P + 1, (10, 14), 64
 CLI_FRAMES, CLI_HW, CLI_BATCH = 207, (240, 320), 32
 BS20_BATCH = 8
+# The step counts at which the chases are held to each other.
+CHASE_ITERS = (1, 3, 4096)
+# Cells of a volume-chase call that `counted()` keeps for `[paths]`: a volume
+# at radius 64 holds 66.6 KB a cell.
+CAPTURE_CELLS = 4096
+# The volume chase's bytes: the distinct 32-byte sectors its walks read.
+SECTOR_BYTES = 32
 STREAMS = ("frames", "compensated", "curr_prev_diff", "curr_comp_diff", "model_motion_field")
 
 # Published H100 SXM peaks (NVIDIA's data sheet; 700 W): HBM3 bytes/s and the
@@ -128,12 +141,14 @@ REPLACES = {
     "cost_volume_rowoffset": "gme_tpu/ops/pallas_kernels.py:98",
     "cost_volume_cross": "gme_tpu/ops/pallas_kernels.py:71",
     "chase_fixpoint": "gme_tpu/ops/pallas_kernels.py:872",
+    "chase_volume": "gme_tpu/ops/pallas_kernels.py:872",
     "warp_block_field": "gme_tpu/ops/pallas_kernels.py:719",
 }
 # The path whose run gives each kernel's `launches` in the JSON record.
 MAIN_PATH = {
     "cost_volume_small_block": "driver 720p", "cost_volume_mse_block": "driver 720p",
-    "chase_fixpoint": "driver 720p", "warp_block_field": "driver 720p",
+    "chase_fixpoint": "driver 720p", "chase_volume": "driver 720p",
+    "warp_block_field": "driver 720p",
     "cost_volume_rowoffset": "search three-step", "cost_volume_cross": "gme R64",
 }
 
@@ -183,6 +198,38 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """(ms, names): the device's own time per call of `fn` over `reps`
+    calls after one warm-up call, the sum of the durations of the device
+    activity (kernels, fills, copies) that torch.profiler records in the
+    window divided by `reps`, and the names of that activity.  No host
+    time between launches enters it."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(spans, "the profiler recorded no device activity")
+    return sum(us for _, us in spans) / 1e3 / reps, sorted({n for n, _ in spans})
+
+
+def host_us(torch, fn, reps):
+    """Host microseconds a call of `fn` takes to return (the launch is
+    queued, not waited for), over `reps` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / reps * 1e6
 
 
 def max_abs_err(torch, a, b):
@@ -249,6 +296,31 @@ def chase_reads(K, rank, bounds, D, R, iters):
     return int(chase_loads(K, rank, bounds, D, R, iters).sum())
 
 
+def chase_volume_reads(K, volume, bounds, D, R, iters, packed_rule):
+    """((C,) steps, sectors) of the volume chase's walks on these inputs,
+    from the plain lockstep walk: a cell takes step i where step i - 1
+    moved it (step 0 always, at most `iters`) and reads there each
+    candidate whose line lies in the volume (nine loads at most, independent
+    of each other, dependent on the step before); `sectors` counts the
+    distinct 32-byte sectors of the volume that all the walks read."""
+    import torch
+
+    C = volume.shape[0]
+    row0 = torch.arange(C, device=volume.device)[:, None] * (D * D)
+    steps = torch.zeros(C, dtype=torch.int64, device=volume.device)
+    sectors, prev = [], None
+    for i in range(iters):
+        o, _ = K.chase_volume_plain(volume, bounds, D, R, i, packed_rule)
+        walking = torch.ones_like(steps, dtype=torch.bool) if prev is None else o != prev
+        if not bool(walking.any()):
+            break
+        _, idx, read = K.chase_candidates(volume, bounds, o // D - R, o % D - R, D, R, packed_rule)
+        sectors.append(((row0 + idx) * 4 // SECTOR_BYTES)[read & walking[:, None]])
+        steps += walking
+        prev = o
+    return steps, int(torch.cat(sectors).unique().numel()) if sectors else 0
+
+
 def chain_ms(longest, cold_ms, row_ms):
     """The least time of the longest walk of `longest` dependent loads: its
     first load from device memory, the rest from the L1 copy of its row."""
@@ -257,12 +329,14 @@ def chain_ms(longest, cold_ms, row_ms):
 
 def work(K, kernel, args):
     """(bytes, operations, kind of operation) of the kernel's function on
-    these arguments: each input read once and each output written once;
-    for the volumes the instructions a pixel term needs: a u8 multiply-add,
-    2 operations, on the int8 tensor cores where the function has that form,
-    else a quarter of `__vabsdiffu4` + `__dp4a`, which take 4 terms in 2
-    int32 instructions; none counted for the chase and the warp, whose work
-    is index arithmetic."""
+    these arguments: each input read once and each output written once
+    (for the chases the bounds, the outputs and what the walks read: a rank
+    byte a step on the rank map, each distinct 32-byte sector of the volume
+    that the candidate loads touch); for the volumes the instructions a pixel term needs: a u8
+    multiply-add, 2 operations, on the int8 tensor cores where the function
+    has that form, else a quarter of `__vabsdiffu4` + `__dp4a`, which take 4
+    terms in 2 int32 instructions; none counted for the chases and the
+    warp, whose work is index arithmetic."""
     if kernel.startswith("cost_volume"):
         p, c, bs, D = args[:4]
         B, Hc, Wc = p.shape
@@ -273,6 +347,9 @@ def work(K, kernel, args):
     if kernel == "chase_fixpoint":
         rank, bounds, D, R, iters = args
         return rank.shape[0] * (16 + 4 + 1) + chase_reads(K, rank, bounds, D, R, iters), 0, None
+    if kernel == "chase_volume":
+        _, sectors = chase_volume_reads(K, *args)
+        return args[0].shape[0] * (16 + 4 + 1) + SECTOR_BYTES * sectors, 0, None
     frame, d, bs = args  # warp_block_field
     B, nbh, nbw, _ = d.shape
     return frame.numel() + 4 * d.numel() + B * nbh * bs * nbw * bs, 0, None
@@ -309,28 +386,59 @@ def cross_library(torch, p, c, bs, D):
             lambda out: out.reshape(B, nbh, nbw, D * D))
 
 
+def cell_subset(args, cells=CAPTURE_CELLS):
+    """A volume chase's (volume, bounds, ...) on an evenly spaced subset of
+    at most about `cells` of its cells, the last one included: each cell's
+    walk depends on its own row and bounds only."""
+    volume, bounds = args[:2]
+    C = volume.shape[0]
+    idx = list(range(0, C, max(1, C // cells)))
+    idx = idx + [C - 1] if idx[-1] != C - 1 else idx
+    idx = bounds.new_tensor(idx).long()
+    return [volume[idx], bounds[idx]] + list(args[2:])
+
+
 def capturing(torch, name, wrapper, captured):
     """`wrapper` that also keeps a host copy of its arguments (and keyword
     arguments, such as the cross kernel's `ssd`) the first time it is called
-    at each shape, keyed by (name, shapes and scalars, keywords)."""
+    at each shape, keyed by (name, shapes and scalars, keywords); of a
+    volume chase only `cell_subset`'s cells."""
     def call(*args, **kw):
         key = ((name,) + tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args)
                + tuple(sorted(kw.items())))
         if key not in captured:
-            captured[key] = ([a.cpu() if isinstance(a, torch.Tensor) else a for a in args], kw)
+            keep = cell_subset(args) if name == "chase_volume" else args
+            captured[key] = ([a.cpu() if isinstance(a, torch.Tensor) else a for a in keep], kw)
         return wrapper(*args, **kw)
     return call
 
 
+RANK_MAP_BUILDERS = ("_succ_map_packed", "_succ_map_select")
+
+
 def counted(torch, K, path, fn, kernels, launch_log, captured):
     """Run `fn` with every launch count set to 0 just before and read just
-    after; fail unless each kernel of `kernels` launched.  Every kernel
-    wrapper called meanwhile leaves its arguments in `captured` at each new
-    shape, so that each shape the path gives a kernel can later be held
-    against the plain version."""
+    after; fail unless each kernel of `kernels` launched, and if a rank map
+    was built (`rank_map_builds`: the volume chase walks the volume itself).
+    Every kernel wrapper called meanwhile leaves its arguments in `captured`
+    at each new shape, so that each shape the path gives a kernel can later
+    be held against the plain version."""
+    from gme_tpu_torch.ops import bbme
+
     originals = {k: getattr(K, k) for k in K.LAUNCHES}
+    builders = {b: getattr(bbme, b) for b in RANK_MAP_BUILDERS}
+    builds = [0]
+
+    def building(builder):
+        def call(*args, **kw):
+            builds[0] += 1
+            return builder(*args, **kw)
+        return call
+
     for k, wrapper in originals.items():
         setattr(K, k, capturing(torch, k, wrapper, captured))
+    for b, builder in builders.items():
+        setattr(bbme, b, building(builder))
     try:
         torch.cuda.synchronize()
         K.reset_launch_counts()
@@ -339,10 +447,13 @@ def counted(torch, K, path, fn, kernels, launch_log, captured):
     finally:
         for k, wrapper in originals.items():
             setattr(K, k, wrapper)
-    launches = dict(K.LAUNCHES)
+        for b, builder in builders.items():
+            setattr(bbme, b, builder)
+    launches = dict(K.LAUNCHES, rank_map_builds=builds[0])
     launch_log[path] = launches
     missing = [k for k in kernels if launches[k] == 0]
     check(not missing, f"{path}: kernels of the path did not launch: {missing} ({launches})")
+    check(builds[0] == 0, f"{path}: the path built a rank map ({launches})")
     return out
 
 
@@ -590,7 +701,7 @@ def driver_phase(torch, K, card, launch_log, captured, work, dev):
               return_diagnostics=True)
     (field, diag), wall, _ = timed(torch, lambda: counted(
         torch, K, "diamond bs20", lambda: bbme.get_motion_field(p20, c20, **kw),
-        ("cost_volume_rowoffset", "chase_fixpoint"), launch_log, captured))
+        ("cost_volume_rowoffset", "chase_volume"), launch_log, captured))
     crop = (slice(0, 1), slice(0, 360), slice(0, 640))
     small = bbme.get_motion_field(p20[crop].cpu(), c20[crop].cpu(), **kw)
     on_card = bbme.get_motion_field(p20[crop], c20[crop], **kw)
@@ -714,8 +825,12 @@ def run(torch):
     # Phase 3: each kernel against its plain version, bit for bit.  The
     # launch floor: one launch of a one-element fill, timed as the kernels
     # are; where it exceeds a function's bound, latency binds.
-    launch_ms = cuda_ms(torch, torch.zeros(1, device=dev).zero_, KERNEL_REPS)
-    phase("kernels", f"launch floor {launch_ms:.4f} ms (one-element fill, {card})")
+    fill = torch.zeros(1, device=dev).zero_
+    launch_ms = cuda_ms(torch, fill, KERNEL_REPS)
+    launch_device_ms, _ = device_ms(torch, fill, KERNEL_REPS)
+    phase("kernels", f"launch floor {launch_ms:.4f} ms (one-element fill, events around a loop "
+          f"of calls), its device time {launch_device_ms:.4f} ms (torch.profiler), host "
+          f"{host_us(torch, fill, KERNEL_REPS):.1f} us a call ({card})")
     # The chase's floor: its longest walk as a chain of dependent loads, the
     # first from device memory, the rest from L1.
     row_ms = load_latency(torch, dev, probe_lib, PROBE_ROW_BYTES)
@@ -724,13 +839,21 @@ def run(torch):
           f"in a {PROBE_ROW_BYTES}-byte rank-map row, {cold_ms * 1e6:.1f} ns across "
           f"{PROBE_COLD_BYTES >> 20} MiB ({card})")
 
+    def chain_of(kernel, args):
+        """The longest walk of a chase as a chain of dependent loads (ms),
+        or None for the other kernels: a rank byte a step on the rank map, a
+        step's nine independent candidate loads on the volume."""
+        if kernel == "chase_fixpoint":
+            return chain_ms(int(chase_loads(K, *args).max()), cold_ms, row_ms)
+        if kernel == "chase_volume":
+            return chain_ms(int(chase_volume_reads(K, *args)[0].max()), cold_ms, row_ms)
+        return None
+
     def floor_of(kernel, args):
-        """(latency floor ms, chain ms or None): one launch; for the chase
-        the larger of that and its longest walk of dependent loads."""
-        if kernel != "chase_fixpoint":
-            return launch_ms, None
-        chain = chain_ms(int(chase_loads(K, *args).max()), cold_ms, row_ms)
-        return max(launch_ms, chain), chain
+        """(latency floor ms, chain ms or None): one launch; for the chases
+        the larger of that and their longest walk of dependent loads."""
+        chain = chain_of(kernel, args)
+        return (launch_ms, None) if chain is None else (max(launch_ms, chain), chain)
 
     records = {k: {"max_abs_err": 0.0} for k in K.LAUNCHES}
     # Each wrapper's plain version, called with the wrapper's arguments.
@@ -740,6 +863,7 @@ def run(torch):
         "cost_volume_rowoffset": K.cost_volume_plain,
         "cost_volume_cross": K.cost_volume_cross_plain,
         "chase_fixpoint": K.chase_fixpoint_plain,
+        "chase_volume": K.chase_volume_plain,
         "warp_block_field": K.warp_block_field_plain,
     }
 
@@ -759,7 +883,12 @@ def run(torch):
         """Hold the kernel to its plain version on `args` (and keywords
         `kw`) and time both, with the bound of its function there; `library`
         is one PyTorch call computing the same function (checked equal, then
-        timed).  The record keeps the figures of the main path's shape
+        timed).  The kernel's time is read twice: CUDA events around a loop
+        of wrapper calls (`ms`, the host's cost a call included where it is
+        the larger) and the device's own duration of the kernel
+        (`device_ms`), with the wrapper's host time a call (`host_us`); the
+        share is given against each, the device one with the device's own
+        launch floor.  The record keeps the figures of the main path's shape
         (`main`)."""
         kw = kw or {}
         run_kernel = lambda: getattr(K, kernel)(*args, **kw)  # noqa: E731
@@ -767,10 +896,15 @@ def run(torch):
         got = run_kernel()
         err = agree(kernel, got, run_plain())
         ms = cuda_ms(torch, run_kernel, KERNEL_REPS)
+        dev_ms, dev_names = device_ms(torch, run_kernel, KERNEL_REPS)
+        call_us = host_us(torch, run_kernel, KERNEL_REPS)
         plain_ms = cuda_ms(torch, run_plain, PLAIN_REPS)
-        floor, chain = floor_of(kernel, args)
+        chain = chain_of(kernel, args)
+        floor = max(launch_ms, chain or 0.0)
+        dev_floor = max(launch_device_ms, chain or 0.0)
         bound_ms, bound_by, binds = bound(K, kernel, args, floor)
         share = max(bound_ms, floor) / ms
+        device_share = max(bound_ms, dev_floor) / dev_ms
         library_ms, note = None, ""
         if library is not None:
             call, to_layout = library
@@ -783,12 +917,16 @@ def run(torch):
         if main:
             records[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                    binds=binds, launch_ms=launch_ms, share=share,
-                                   library_ms=library_ms)
+                                   library_ms=library_ms, device_ms=dev_ms, host_us=call_us,
+                                   launch_device_ms=launch_device_ms, device_share=device_share)
             if chain is not None:
                 records[kernel]["chain_ms"] = chain
         phase("kernels", f"{kernel} {shape_note}{' ' + str(kw) if kw else ''}: bit-equal=True "
-              f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{note}; bound "
-              f"{bound_ms:.4f} ms by {bound_by}, {binds} binds, share {share:.4f} ({card})")
+              f"max_abs_err={err} kernel {ms:.4f} ms (events around a loop of calls), device "
+              f"{dev_ms:.4f} ms (torch.profiler: {', '.join(n[:48] for n in dev_names)}), host "
+              f"{call_us:.1f} us a call, plain {plain_ms:.4f} ms{note}; bound {bound_ms:.4f} ms by "
+              f"{bound_by}, {binds} binds, share {share:.4f}, of the device time "
+              f"{device_share:.4f} ({card})")
 
     bs0 = cfg.dense_block_size
     R0 = min(cfg.dense_volume_radius, max(prev_pyr[0].shape[1:]))
@@ -881,17 +1019,47 @@ def run(torch):
           f"launch, SSD mode) == direct == plain; {'; '.join(notes)} ({card})")
     del p4, c4, want
 
+    # The chases at the shapes the paths give them: the default step's level
+    # 2 (the records' shape) and dense init, the radius-64 step's level 2 and
+    # the volume diamond at bs 20 (the select chain's clamp rule).  The volume
+    # chase is held to its plain version and to the rank-map chase on
+    # `_succ_map`'s map, cut at 1, 3 and 4096 steps; the rank-map chase keeps
+    # its timed comparison at level 2.
     H, W = prev.shape[1:]
-    volume = bbme.compute_cost_volume(prev, curr, bs, R2, MSE)
-    origins = bbme._block_origins(H // bs, W // bs, bs, dev)
-    rank = bbme._succ_map_packed(volume, origins, H, W, bs, R2).reshape(-1, D2 * D2)
-    del volume
-    og = origins.expand((BATCH_720P,) + origins.shape).reshape(-1, 2)
-    bounds = torch.stack([-og[:, 0], (H - bs - 1) - og[:, 0], -og[:, 1], (W - bs - 1) - og[:, 1]],
-                         dim=1).to(torch.int32).contiguous()
-    compare("chase_fixpoint", (rank, bounds, D2, R2, cfg.max_search_iters),
-            f"C={rank.shape[0]} D={D2}")
-    del rank, bounds
+    R20 = 32  # get_motion_field's default volume radius
+    chase_shapes = [
+        ("level 2", prev, curr, bs, R2, MSE, True),
+        ("dense init", prev_pyr[0], curr_pyr[0], bs0, R0, MSE, False),
+        ("radius 64", prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], bs, R64, MSE, False),
+        ("bs 20", prev[:BS20_BATCH], curr[:BS20_BATCH], 20, R20, MAE, False),
+    ]
+    for label, p, c, cbs, R, pnorm, main in chase_shapes:
+        Hs, Ws = p.shape[1:]
+        D = 2 * R + 1
+        volume = bbme.compute_cost_volume(p, c, cbs, R, pnorm)
+        origins = bbme._block_origins(Hs // cbs, Ws // cbs, cbs, dev)
+        rank = bbme._succ_map(volume, origins, Hs, Ws, cbs, R).reshape(-1, D * D)
+        og = origins.expand(volume.shape[:-1] + (2,)).reshape(-1, 2)
+        bounds = torch.stack([-og[:, 0], (Hs - cbs - 1) - og[:, 0], -og[:, 1],
+                              (Ws - cbs - 1) - og[:, 1]], dim=1).to(torch.int32).contiguous()
+        volume = volume.reshape(-1, D * D)
+        packed = bbme._packed_rule(cbs)
+        note = f"{label} B={p.shape[0]} {(Hs, Ws)} C={rank.shape[0]} bs={cbs} D={D}"
+        for iters in CHASE_ITERS:
+            got = K.chase_volume(volume, bounds, D, R, iters, packed)
+            agree("chase_volume", got, K.chase_fixpoint_plain(rank, bounds, D, R, iters))
+            agree("chase_volume", got, K.chase_volume_plain(volume, bounds, D, R, iters, packed))
+        phase("kernels", f"chase_volume {note} ({'packed' if packed else 'select'} clamp rule): "
+              f"== chase_volume_plain == chase_fixpoint_plain on the rank map at max_iters "
+              f"{list(CHASE_ITERS)}")
+        if main:
+            compare("chase_fixpoint", (rank, bounds, D, R, cfg.max_search_iters),
+                    f"{label} C={rank.shape[0]} D={D}")
+        del rank
+        compare("chase_volume", (volume, bounds, D, R, cfg.max_search_iters, packed), note,
+                main=main)
+        del volume, bounds, got
+        torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     d = torch.randint(-40, 41, (BATCH_720P, H // bs, W // bs, 2), dtype=torch.int32,
@@ -932,7 +1100,7 @@ def run(torch):
         kw = dict(block_size=CLI_BS, search_window=CLI_SW, searching_procedure=sp,
                   pnorm_distance=MAE, return_diagnostics=True)
         path = f"search {SEARCH_NAMES[sp]}"
-        kernels = ("cost_volume_rowoffset",) + (("chase_fixpoint",) if sp == 3 else ())
+        kernels = ("cost_volume_rowoffset",) + (("chase_volume",) if sp == 3 else ())
         (field, diag), wall, _ = timed(
             torch, lambda: counted(torch, K, path,
                                    lambda: bbme.get_motion_field(sp_prev, sp_curr, **kw),

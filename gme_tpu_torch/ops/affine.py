@@ -27,6 +27,8 @@ from typing import Tuple
 
 import torch
 
+from gme_tpu_torch.utils import guards
+
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a*b + c rounded once, like an FMA instruction.
@@ -45,8 +47,10 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     err = (p - (s - bv)) + (cd - bv)
     even = (s.view(torch.int64) & 1) == 0
     # err * inf is +-inf where the sum is inexact (nan where it is exact,
-    # and not taken there).
-    return torch.where((err != 0) & even, torch.nextafter(s, err * math.inf), s).float()
+    # and not taken there).  An infinite or NaN sum stays as it is: its
+    # err is NaN, and an FMA instruction gives that sum too.
+    inexact = (err != 0) & even & torch.isfinite(s)
+    return torch.where(inexact, torch.nextafter(s, err * math.inf), s).float()
 
 
 def _cell_coords(nbh: int, nbw: int, dtype, device):
@@ -70,10 +74,17 @@ def get_motion_field_affine(
 ) -> torch.Tensor:
     """(B, shape[0], shape[1], 2) int16 field from (B, 6) parameters,
     rounded half to even like Python's round() (reference motion.py:139-157);
-    `torch.round` rounds half to even as `jnp.round` does."""
+    `torch.round` rounds half to even as `jnp.round` does.
+
+    The conversion to int16 is XLA's: NaN gives 0 and values beyond the
+    int16 range saturate (inf included), so the NaN parameters of a
+    degenerate fit give the JAX package's field.  A plain `.to(torch.int16)`
+    of NaN or of an out-of-range value is not defined."""
     nbh, nbw = int(shape[0]), int(shape[1])
     xs, ys = _cell_coords(nbh, nbw, torch.float32, parameters.device)
-    return torch.round(affine_model(xs, ys, parameters)).to(torch.int16)
+    d = torch.round(affine_model(xs, ys, parameters))
+    lo, hi = float(torch.iinfo(torch.int16).min), float(torch.iinfo(torch.int16).max)
+    return d.nan_to_num_(0.0).clamp_(lo, hi).to(torch.int16)
 
 
 def compute_first_parameters(dense_motion_field: torch.Tensor) -> torch.Tensor:
@@ -142,27 +153,25 @@ def int_moments(
 def params_from_moments(moments: torch.Tensor) -> torch.Tensor:
     """Solve the mean-centred affine normal equations from (B, 12) exact
     moments, in the f32 operations XLA:CPU compiles the JAX package's
-    function to (each `_fma` one FMA of its object code).  Raises on an
-    empty inlier set or a singular system (the JAX package's
-    `guards.check`).
+    function to (each `_fma` one FMA of its object code).  An empty inlier
+    set or a singular system gives the JAX package's NaN and inf
+    parameters; under `guards.debug_checks()` it raises instead, as the JAX
+    package's `guards.check` does.
 
     The solve runs on the host whatever the moments' device: they are 12
-    numbers a pair, the singular-system check reads them back anyway, and
-    on the card each of its hundred-odd small ops would be a launch."""
+    numbers a pair, and on the card each of its hundred-odd small ops would
+    be a launch."""
     dev = moments.device
     mom = moments.cpu().to(torch.float32).T  # (12, B)
     n, Sx, Sy = mom[0], mom[1], mom[2]
+    guards.check(n > 0, "affine fit: empty inlier set (all cells masked out)")
     xbar = Sx / n
     ybar = Sy / n
     # Independent terms share one `_fma` call; each element keeps its own
     # operation order.
     Gxx, Gxy, Gyy = _fma(-mom[[1, 1, 2]], torch.stack([xbar, ybar, ybar]), mom[3:6])
     det = _fma(Gxx, Gyy, -(Gxy * Gxy))
-    if bool(((n <= 0) | (det == 0)).any()):
-        raise ValueError(
-            "affine fit: empty inlier set or singular normal equations "
-            "(inlier cells are collinear)"
-        )
+    guards.check(det != 0, "affine fit: singular normal equations (inlier cells are collinear)")
 
     # Both axes at once: row k of Sd, Sxd, Syd is the axis of d_k.
     Sd, Sxd, Syd = mom[[6, 9]], mom[[7, 10]], mom[[8, 11]]
@@ -204,7 +213,10 @@ def _fit_normal_equations_f32(
 ) -> torch.Tensor:
     """Mean-centred f32 fit (float fields, or frames whose moments overflow
     int32, such as 1080p).  Its sums run in another order than XLA's, so it
-    agrees with the JAX package to float32 rounding, not bit for bit."""
+    agrees with the JAX package to float32 rounding, not bit for bit.  An
+    empty inlier set gives NaN parameters, as in the JAX package, and raises
+    under `guards.debug_checks()`; a singular system gives what the LU
+    solve gives, raising nowhere."""
     B, nbh, nbw = inlier_mask.shape
     H, W = frame_shape
     dev = motion_field.device
@@ -214,8 +226,7 @@ def _fit_normal_equations_f32(
     mw = inlier_mask.to(torch.float32) * w
 
     wsum = mw.sum(dim=(1, 2))
-    if bool((wsum <= 0).any()):
-        raise ValueError("affine fit: empty inlier set (all cells masked out)")
+    guards.check(wsum > 0, "affine fit: empty inlier set (all cells masked out)")
     xbar = (xs * mw).sum(dim=(1, 2)) / wsum
     ybar = (ys * mw).sum(dim=(1, 2)) / wsum
     xc = xs - xbar[:, None, None]
@@ -224,7 +235,8 @@ def _fit_normal_equations_f32(
     G = torch.einsum("bija,bijc,bij->bac", A, A, mw)
     d = motion_field.to(torch.float32)
     rhs = torch.einsum("bija,bijc,bij->bac", A, d, mw)
-    sol = torch.linalg.solve(G, rhs)  # (B, 3, 2) rows: [c0, a1|b1, a2|b2]
+    # solve_ex: a singular system is no error, as in jnp.linalg.solve.
+    sol = torch.linalg.solve_ex(G, rhs).result  # (B, 3, 2) rows: [c0, a1|b1, a2|b2]
     a0 = sol[:, 0, 0] - sol[:, 1, 0] * xbar - sol[:, 2, 0] * ybar
     b0 = sol[:, 0, 1] - sol[:, 1, 1] * xbar - sol[:, 2, 1] * ybar
     return torch.stack(

@@ -9,10 +9,12 @@ reference's tie-breaking and quirks.
 The data-dependent searches evaluate candidates on one of two engines:
 
 - "volume": the block DFD for every offset in [-R, R]^2 as a cost volume (a
-  CUDA kernel), then lookups into it.  The diamond walk runs as an int8 LDSP
-  rank map over the volume (plain torch) chased to its fixpoint (a CUDA
-  kernel).  Walks that reach the volume's edge are counted in
-  `volume_edge_hits`.
+  CUDA kernel), then lookups into it.  The diamond walk is chased to its
+  fixpoint on the volume itself (a CUDA kernel that takes each step's rank
+  from the nine candidate costs): the JAX package's int8 LDSP rank map,
+  built beforehand for every offset because a TPU kernel cannot gather,
+  stays here (`_succ_map`) for the tests and the rank-map chase only.
+  Walks that reach the volume's edge are counted in `volume_edge_hits`.
 - "gather": the candidate blocks gathered from the frame, exact for any
   walk length.
 
@@ -23,8 +25,9 @@ is 0 (and three-step and exhaustive are exact on both).
 
 All DFD values are integer sums taken in int32 and rounded to float32 once:
 exact below 2**24 (every block size up to 16), so every stage is
-bit-identical to the JAX package.  Above block size 16 the rank map is the
-select chain (`_succ_map_select`), which compares costs and needs no pack.
+bit-identical to the JAX package.  The walk compares float costs, so it
+needs no `cost*16 + rank` pack at any block size; it follows the rank map's
+clamp rule of the block size (`_packed_rule`).
 
 Motion-field convention (reference bbme.py:531-532): (B, H//bs, W//bs, 2)
 int32, channel 0 the column shift, channel 1 the row shift.
@@ -606,11 +609,18 @@ def _succ_map_select(
     return best_k.reshape(lead + (D * D,))
 
 
+def _packed_rule(block_size: int) -> bool:
+    """Whether the rank map is the packed builder's: wherever the cost*16 +
+    rank pack is exact (max DFD bs^2 * 255^2 < 2**24, bs <= 16)."""
+    return block_size * block_size * 255 * 255 < 2**24
+
+
 def _succ_map(volume, origins, H: int, W: int, block_size: int, radius: int) -> torch.Tensor:
-    """Rank-map dispatch (JAX bbme.py:819-825): the packed builder wherever
-    the cost*16 + rank pack is exact (max DFD bs^2 * 255^2 < 2**24, bs <=
-    16), else the select chain."""
-    if block_size * block_size * 255 * 255 < 2**24:
+    """Rank-map dispatch (JAX bbme.py:819-825): the packed builder where
+    `_packed_rule`, else the select chain.  The searches no longer build it
+    (`diamond_walk_volume`); it is the rank-map chase's input and the tests'
+    reference for the volume chase."""
+    if _packed_rule(block_size):
         return _succ_map_packed(volume, origins, H, W, block_size, radius)
     return _succ_map_select(volume, origins, H, W, block_size, radius)
 
@@ -619,23 +629,25 @@ def diamond_walk_volume(
     volume: torch.Tensor, origins: torch.Tensor, H: int, W: int,
     block_size: int, radius: int, max_iters: int = 4096,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Volume-engine diamond walk: rank map, fixpoint chase, one SDSP pass
-    (JAX bbme.py:963-1106).  Returns the (B, nbh, nbw, 2) best absolute
-    positions and the (B,) int32 count of walks that visited the volume's
-    boundary-adjacent ring (max |offset| >= R - 1), the certificate that a
-    larger radius could not change the result when zero."""
+    """Volume-engine diamond walk: the fixpoint chase, one SDSP pass (JAX
+    bbme.py:963-1106).  The chase reads the volume itself and gives what the
+    JAX package's chase of its rank map gives (`cuda_kernels.chase_volume`),
+    with the rank map's clamp rule of this block size.  Returns the
+    (B, nbh, nbw, 2) best absolute positions and the (B,) int32 count of
+    walks that visited the volume's boundary-adjacent ring (max |offset| >=
+    R - 1), the certificate that a larger radius could not change the result
+    when zero."""
     bs, R = block_size, radius
     D = 2 * R + 1
     lead = volume.shape[:-1]
     B = lead[0]
-    rank_map = _succ_map(volume, origins, H, W, bs, R)
     og = origins.expand(lead + (2,))
     bounds = torch.stack(
         [-og[..., 0], (H - bs - 1) - og[..., 0], -og[..., 1], (W - bs - 1) - og[..., 1]],
         dim=-1,
     ).reshape(-1, 4).to(torch.int32).contiguous()
-    o, touched = cuda_kernels.chase_fixpoint(
-        rank_map.reshape(-1, D * D), bounds, D, R, max_iters
+    o, touched = cuda_kernels.chase_volume(
+        volume.reshape(-1, D * D).contiguous(), bounds, D, R, max_iters, _packed_rule(bs)
     )
     o = o.reshape(lead)
     edge_hits = touched.reshape(B, -1).sum(dim=1, dtype=torch.int32)

@@ -1,10 +1,11 @@
-"""The port's six hand-written Hopper kernels: build, binding, wrappers and
+"""The port's hand-written Hopper kernels: build, binding, wrappers and
 their plain PyTorch versions.
 
 Counterpart of `gme_tpu/ops/pallas_kernels.py`.  Each Pallas kernel has a
 CUDA C++ kernel under `gme_tpu_torch/csrc/` (the source note at the top of
 each `.cu` file says what bounds it on the H100 and how its design answers
-that):
+that); the chase has two, one on the rank map as the Pallas kernel takes
+it and one that reads the cost volume itself (the one the searches run):
 
 =========================  ==========================  ======================
 wrapper                    replaces (pallas_kernels)   source
@@ -14,6 +15,7 @@ cost_volume_mse_block      _hankel_mse_kernel          cost_volume_mse_block.cu
 cost_volume_rowoffset      _cost_volume_kernel         cost_volume_rowoffset.cu
 cost_volume_cross          _cross_volume_kernel        cost_volume_cross.cu
 chase_fixpoint             _chase_kernel               chase_fixpoint.cu
+chase_volume               _chase_kernel + rank map    chase_volume.cu
 warp_block_field           _warp_kernel                warp_block_field.cu
 =========================  ==========================  ======================
 
@@ -55,6 +57,7 @@ _SOURCES = (
     "cost_volume_rowoffset.cu",
     "cost_volume_cross.cu",
     "chase_fixpoint.cu",
+    "chase_volume.cu",
     "warp_block_field.cu",
     "errors.cu",
 )
@@ -70,6 +73,7 @@ LAUNCHES = {
     "cost_volume_rowoffset": 0,
     "cost_volume_cross": 0,
     "chase_fixpoint": 0,
+    "chase_volume": 0,
     "warp_block_field": 0,
 }
 
@@ -166,10 +170,11 @@ def load_library() -> ctypes.CDLL:
         lib.gme_cost_volume_rowoffset.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.gme_cost_volume_cross.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.gme_chase_fixpoint.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gme_chase_volume.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.gme_warp_block_field.argtypes = [p, p, p, i, i, i, i, i, i, p]
         for fn in (lib.gme_cost_volume_small_block, lib.gme_cost_volume_mse_block,
                    lib.gme_cost_volume_rowoffset, lib.gme_cost_volume_cross,
-                   lib.gme_chase_fixpoint, lib.gme_warp_block_field):
+                   lib.gme_chase_fixpoint, lib.gme_chase_volume, lib.gme_warp_block_field):
             fn.restype = ctypes.c_int
         lib.gme_error_string.argtypes = [ctypes.c_int]
         lib.gme_error_string.restype = ctypes.c_char_p
@@ -429,13 +434,13 @@ def cost_volume_cross(
 LDSP = ((0, 0), (2, 0), (1, 1), (0, 2), (-1, 1), (-2, 0), (-1, -1), (0, -2), (1, -1))
 
 
-def chase_fixpoint_plain(
-    rank_map: torch.Tensor, bounds: torch.Tensor, D: int, R: int, max_iters: int
-):
-    """Plain version: the JAX package's lockstep loop (bbme.py:1059-1082)
-    — every cell steps until no cell moves or after `max_iters` steps."""
-    C = rank_map.shape[0]
-    dev = rank_map.device
+def _lockstep_chase(rank_at, bounds: torch.Tensor, D: int, R: int, max_iters: int):
+    """The JAX package's lockstep chase (bbme.py:1059-1082): from
+    o0 = R*D + R every cell takes the LDSP step `rank_at(o)` names, clamped
+    to its bounds, until no cell moves or after `max_iters` steps; the ring
+    flag is tested at each offset before its step."""
+    C = bounds.shape[0]
+    dev = bounds.device
     ldsp = torch.tensor(LDSP, dtype=torch.int32, device=dev)
     lo_r, hi_r, lo_c, hi_c = bounds.unbind(1)
     o = torch.full((C,), R * D + R, dtype=torch.int32, device=dev)
@@ -443,7 +448,7 @@ def chase_fixpoint_plain(
     for _ in range(max_iters):
         orow, ocol = o // D - R, o % D - R
         touched |= torch.maximum(orow.abs(), ocol.abs()) >= R - 1
-        k = rank_map.gather(1, o[:, None].long())[:, 0].long()
+        k = rank_at(o).long()
         er = torch.minimum(torch.maximum(orow + ldsp[k, 0], lo_r), hi_r)
         ec = torch.minimum(torch.maximum(ocol + ldsp[k, 1], lo_c), hi_c)
         nxt = (er + R) * D + (ec + R)
@@ -452,6 +457,15 @@ def chase_fixpoint_plain(
         if not moved:
             break
     return o, touched
+
+
+def chase_fixpoint_plain(
+    rank_map: torch.Tensor, bounds: torch.Tensor, D: int, R: int, max_iters: int
+):
+    """Plain version: the lockstep loop with each rank read from the rank
+    map."""
+    return _lockstep_chase(lambda o: rank_map.gather(1, o[:, None].long())[:, 0],
+                           bounds, D, R, max_iters)
 
 
 def chase_fixpoint(
@@ -482,6 +496,85 @@ def chase_fixpoint(
     return out_o, out_t
 
 
+def _clamp_line(e, lo, hi, R: int, packed_rule: bool):
+    """(line, inside) of LDSP candidates on one axis at raw offsets `e`,
+    by the rank map's clamp rule: the packed builder's (lo below lo, hi
+    above hi), or the select chain's, which differs where lo > hi (e itself
+    where its clip min(max(e, lo), hi) is e, and the clip must lie inside
+    the volume too)."""
+    line = torch.where(e < lo, lo, torch.where(e > hi, hi, e))
+    if packed_rule:
+        return line, line.abs() <= R
+    clip = torch.minimum(torch.maximum(e, lo), hi)
+    line = torch.where(clip == e, e, line)
+    return line, (line.abs() <= R) & (clip.abs() <= R)
+
+
+def chase_candidates(volume, bounds, orow, ocol, D: int, R: int, packed_rule: bool):
+    """(C, 9) float32 costs of each cell's LDSP candidates at offsets
+    (orow, ocol), the rank map's frame clamps applied, +inf where a
+    candidate's line lies outside the volume; the (C, 9) int64 entries of
+    the cell's volume row they come from; and the (C, 9) bool mask of the
+    candidates read from the volume."""
+    ldsp = torch.tensor(LDSP, dtype=torch.int32, device=volume.device)
+    lo_r, hi_r, lo_c, hi_c = (b[:, None] for b in bounds.unbind(1))
+    r, ok_r = _clamp_line(orow[:, None] + ldsp[:, 0], lo_r, hi_r, R, packed_rule)
+    c, ok_c = _clamp_line(ocol[:, None] + ldsp[:, 1], lo_c, hi_c, R, packed_rule)
+    read = ok_r & ok_c
+    idx = ((r.clamp(-R, R) + R) * D + (c.clamp(-R, R) + R)).long()
+    cost = volume.gather(1, idx)
+    return torch.where(read, cost, float("inf")), idx, read
+
+
+def chase_volume_plain(
+    volume: torch.Tensor, bounds: torch.Tensor, D: int, R: int, max_iters: int,
+    packed_rule: bool,
+):
+    """Plain version: the lockstep loop of `chase_fixpoint_plain`, with each
+    rank taken from the nine candidates gathered from the volume at the
+    visited offset (`chase_candidates`; `torch.argmin` gives the first
+    minimum, so all-+inf candidates give rank 0) instead of the rank map."""
+    def rank_at(o):
+        cost, _, _ = chase_candidates(volume, bounds, o // D - R, o % D - R, D, R, packed_rule)
+        return torch.argmin(cost, dim=1)
+
+    return _lockstep_chase(rank_at, bounds, D, R, max_iters)
+
+
+def chase_volume(
+    volume: torch.Tensor, bounds: torch.Tensor, D: int, R: int, max_iters: int,
+    packed_rule: bool,
+):
+    """Chase every cell's diamond walk from o0 = R*D + R to its fixpoint on
+    the (C, D*D) float32 cost volume itself, with (C, 4) int32 per-cell
+    clamp bounds (lo_r, hi_r, lo_c, hi_c).  Returns what `chase_fixpoint`
+    returns on the rank map of that volume: (C,) int32 offsets and (C,)
+    bool ring-visited flags.  `packed_rule` picks the rank map's clamp rule
+    where lo > hi: the packed builder's (True; `bbme._succ_map` takes it
+    where bs*bs*255*255 < 2**24) or the select chain's.
+
+    Replaces pallas_kernels.py:_chase_kernel and the rank map before it;
+    bound on the H100 by the volume sectors its walks read, one thread per
+    cell whose nine candidate loads a step are issued together (see
+    csrc/chase_volume.cu)."""
+    if D != 2 * R + 1:
+        raise ValueError(f"D must be 2R+1, got D={D}, R={R}")
+    if not isinstance(volume, torch.Tensor) or volume.dim() != 2:
+        raise ValueError("volume: expected a (C, D*D) tensor")
+    C = volume.shape[0]
+    _check(volume, "volume", torch.float32, (C, D * D))
+    _check(bounds, "bounds", torch.int32, (C, 4))
+    if _on_cpu(volume, bounds):
+        return chase_volume_plain(volume, bounds, D, R, max_iters, packed_rule)
+    out_o = torch.empty(C, dtype=torch.int32, device=volume.device)
+    out_t = torch.empty(C, dtype=torch.bool, device=volume.device)
+    if C:
+        _launch("chase_volume", load_library().gme_chase_volume, volume.device,
+                _ptr(volume), _ptr(bounds), _ptr(out_o), _ptr(out_t),
+                C, D, R, max_iters, int(bool(packed_rule)))
+    return out_o, out_t
+
+
 # ---------------------------------------------------------------------------
 # Warp
 # ---------------------------------------------------------------------------
@@ -508,7 +601,9 @@ def warp_block_field(frame: torch.Tensor, d: torch.Tensor, bs: int) -> torch.Ten
     out-of-frame sources.
 
     Replaces pallas_kernels.py:_warp_kernel; bound by bytes on the H100,
-    one thread per output pixel (see csrc/warp_block_field.cu)."""
+    one thread per cell row segment of bs bytes at bs 4, 8, 12 and 16 (one
+    16-byte store at bs 16), one thread per output byte at other block
+    sizes (see csrc/warp_block_field.cu)."""
     if not isinstance(frame, torch.Tensor) or frame.dim() != 3:
         raise ValueError("frame: expected a (B, H, W) tensor")
     if not isinstance(d, torch.Tensor) or d.dim() != 4:

@@ -90,6 +90,59 @@ def test_chase_chain_is_the_longest_walk():
     assert chip_smoke.chain_ms(0, 6e-4, 2e-5) == 0.0
 
 
+def _volume_chase_case(seed, H=48, W=64, bs=8, R=5, shift=9):
+    from gme_tpu_torch.ops import bbme
+
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, (1, H + shift, W + shift)).astype(np.uint8)
+    prev = torch.from_numpy(base[:, :H, :W].copy())
+    curr = torch.from_numpy(base[:, shift:, shift:].copy())
+    volume = bbme.compute_cost_volume(prev, curr, bs, R, MSE)
+    origins = bbme._block_origins(H // bs, W // bs, bs, "cpu")
+    og = origins.reshape(-1, 2)
+    bounds = torch.stack([-og[:, 0], (H - bs - 1) - og[:, 0], -og[:, 1], (W - bs - 1) - og[:, 1]],
+                         dim=1).to(torch.int32).contiguous()
+    D = 2 * R + 1
+    rank = bbme._succ_map(volume, origins, H, W, bs, R).reshape(-1, D * D)
+    return volume.reshape(-1, D * D), bounds, rank, D, R
+
+
+def test_volume_chase_bound_counts_the_sectors_read():
+    """Each cell reads its bounds and writes its outputs once, and the
+    walks read each distinct 32-byte sector of the volume that their
+    candidate loads touch; the steps are the rank-map chase's loads on the
+    same walks."""
+    volume, bounds, rank, D, R = _volume_chase_case(5)
+    C = volume.shape[0]
+    steps, sectors = chip_smoke.chase_volume_reads(K, volume, bounds, D, R, 1, True)
+    assert steps.tolist() == [1] * C
+    orow = ocol = torch.zeros(C, dtype=torch.int32)
+    _, idx, read = K.chase_candidates(volume, bounds, orow, ocol, D, R, True)
+    first = {(c * D * D + int(i)) * 4 // 32 for c in range(C) for i, r in zip(idx[c], read[c]) if r}
+    assert sectors == len(first)
+    steps, sectors = chip_smoke.chase_volume_reads(K, volume, bounds, D, R, 64, True)
+    assert torch.equal(steps, chip_smoke.chase_loads(K, rank, bounds, D, R, 64).long())
+    assert len(first) < sectors <= 9 * int(steps.sum())
+    nbytes, ops, _ = chip_smoke.work(K, "chase_volume", (volume, bounds, D, R, 64, True))
+    assert (nbytes, ops) == (21 * C + 32 * sectors, 0)
+
+
+def test_cell_subset_keeps_whole_cells():
+    """`counted()` keeps an evenly spaced subset of a volume chase's cells,
+    the last included; the chase of the subset is the subset of the
+    chase."""
+    volume, bounds, _, D, R = _volume_chase_case(6)
+    sub = chip_smoke.cell_subset((volume, bounds, D, R, 64, True), cells=7)
+    C = volume.shape[0]
+    step = C // 7
+    idx = list(range(0, C, step)) + ([C - 1] if (C - 1) % step else [])
+    assert torch.equal(sub[0], volume[idx]) and torch.equal(sub[1], bounds[idx])
+    assert sub[2:] == [D, R, 64, True]
+    full = K.chase_volume_plain(volume, bounds, D, R, 64, True)
+    part = K.chase_volume_plain(*sub)
+    assert torch.equal(part[0], full[0][idx]) and torch.equal(part[1], full[1][idx])
+
+
 def test_capturing_keeps_the_ssd_keyword():
     """`counted()` keeps the cross kernel's mode, so that `[paths]` holds
     each capture to the right plain version."""

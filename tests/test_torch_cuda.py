@@ -26,7 +26,7 @@ from gme_tpu_torch.ops import cuda_kernels as K
 from gme_tpu_torch.pipeline.results import process_video
 
 DEFAULT_PATH_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block",
-                        "chase_fixpoint", "warp_block_field")
+                        "chase_volume", "warp_block_field")
 
 pytestmark = pytest.mark.gpu
 
@@ -238,6 +238,80 @@ def test_chase_fixpoint(cuda, H, W, bs, R, shift):
         assert torch.equal(got_o.cpu(), want_o) and torch.equal(got_t.cpu(), want_t)
 
 
+def _chase_inputs(volume, H, W, bs, R):
+    D = 2 * R + 1
+    origins = bbme._block_origins(H // bs, W // bs, bs, volume.device)
+    og = origins.expand(volume.shape[:-1] + (2,)).reshape(-1, 2)
+    bounds = torch.stack([-og[:, 0], (H - bs - 1) - og[:, 0], -og[:, 1], (W - bs - 1) - og[:, 1]],
+                         dim=1).to(torch.int32).contiguous()
+    rank = bbme._succ_map(volume, origins, H, W, bs, R).reshape(-1, D * D)
+    return volume.reshape(-1, D * D).contiguous(), bounds, rank
+
+
+def _assert_volume_chase(cuda, volume, H, W, bs, R):
+    """The volume chase on the card equals its plain version and the
+    rank-map chase, cut at 1, 3 and 4096 steps, on the rule of this bs."""
+    D = 2 * R + 1
+    vol, bounds, rank = _chase_inputs(volume, H, W, bs, R)
+    packed = bbme._packed_rule(bs)
+    for iters in (1, 3, 4096):
+        want_o, want_t = K.chase_fixpoint_plain(rank, bounds, D, R, iters)
+        plain_o, plain_t = K.chase_volume_plain(vol, bounds, D, R, iters, packed)
+        assert torch.equal(plain_o, want_o) and torch.equal(plain_t, want_t)
+        got_o, got_t = K.chase_volume(vol.to(cuda), bounds.to(cuda), D, R, iters, packed)
+        assert torch.equal(got_o.cpu(), want_o) and torch.equal(got_t.cpu(), want_t)
+
+
+@pytest.mark.parametrize("pnorm", [MAE, MSE])
+@pytest.mark.parametrize("H,W,bs,R,shift", [(48, 64, 8, 5, 9), (60, 80, 2, 16, 3), (64, 96, 16, 32, 20),
+                                            (8, 64, 8, 4, 2), (48, 8, 8, 4, 2), (16, 16, 16, 3, 1),
+                                            (100, 140, 20, 6, 5), (20, 100, 20, 8, 3),
+                                            (96, 128, 16, 64, 7)])
+def test_chase_volume(cuda, H, W, bs, R, shift, pnorm):
+    """Shifted random frames: ring visits, frame clamps, lo > hi (a frame
+    edge of one block), the select chain's rule at bs 20, radius 64."""
+    rng = np.random.RandomState(shift * 10 + bs)
+    base = rng.randint(0, 256, (2, H + shift, W + shift)).astype(np.uint8)
+    prev = torch.from_numpy(base[:, :H, :W].copy())
+    curr = torch.from_numpy(base[:, shift:, shift:].copy())
+    _assert_volume_chase(cuda, bbme.compute_cost_volume(prev, curr, bs, R, pnorm), H, W, bs, R)
+
+
+@pytest.mark.parametrize("kind", ["ties", "inf", "big"])
+def test_chase_volume_edge_costs(cuda, kind):
+    """Exact ties (costs 0..2), cells of +inf, and costs above 2**24 (the
+    select chain at bs 20)."""
+    bs, H, W, R = (20, 100, 140, 6) if kind == "big" else (8, 48, 64, 5)
+    D = 2 * R + 1
+    rng = np.random.RandomState(len(kind))
+    shape = (2, H // bs, W // bs, D * D)
+    if kind == "ties":
+        vol = rng.randint(0, 3, shape).astype(np.float32)
+    elif kind == "big":
+        vol = (rng.randint(2**24, 2**26, shape) & ~3).astype(np.float32)
+    else:
+        vol = rng.randint(0, 2**24, shape).astype(np.float32)
+        vol[:, ::2, 1::2] = np.inf
+    _assert_volume_chase(cuda, torch.from_numpy(vol), H, W, bs, R)
+
+
+def test_chase_volume_720p_level2(cuda):
+    """The main path's shape: 24 720p pairs at level 2, 86,400 cells, D 65."""
+    rng = np.random.RandomState(0)
+    low = rng.randint(0, 256, (2, 181, 321)).astype(np.float32)
+    img = np.kron(low, np.ones((1, 4, 4), np.float32))[:, :720, :1280].astype(np.uint8)
+    prev = torch.from_numpy(np.repeat(img[:1], 24, 0)).to(cuda)
+    curr = torch.roll(prev, (3, 6), (1, 2))
+    H, W, bs, R = 720, 1280, 16, 32
+    volume = bbme.compute_cost_volume(prev, curr, bs, R, MSE)
+    D = 2 * R + 1
+    vol, bounds, rank = _chase_inputs(volume, H, W, bs, R)
+    for iters in (1, 3, 4096):
+        want = K.chase_fixpoint_plain(rank, bounds.to(cuda), D, R, iters)
+        got = K.chase_volume(vol, bounds.to(cuda), D, R, iters, True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("H,W,bs", [(64, 96, 16), (33, 47, 8), (30, 44, 4), (720, 1280, 16)])
 def test_warp_block_field(cuda, H, W, bs):
     rng = np.random.RandomState(H)
@@ -247,6 +321,25 @@ def test_warp_block_field(cuda, H, W, bs):
     want = K.warp_block_field_plain(f, d, bs)
     got = K.warp_block_field(f.to(cuda), d.to(cuda), bs)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bs", [4, 8, 12, 16, 5, 20])
+@pytest.mark.parametrize("H,W,amp", [(64, 96, 3), (33, 47, 40), (48, 81, 200), (720, 1280, 40)])
+def test_warp_block_field_runs(cuda, bs, H, W, amp):
+    """The run kernel (bs 4, 8, 12, 16) and the per-byte kernel (other bs):
+    in-frame runs at every alignment, runs that clip at either edge or
+    leave the frame, ragged frames, and a frame that starts off a 4-byte
+    boundary (a view one byte into its buffer)."""
+    rng = np.random.RandomState(H + bs)
+    nbh, nbw = H // bs, W // bs
+    buf = _u8(rng, 2 * H * W + 1)
+    f = buf[1:].reshape(2, H, W)
+    d = torch.from_numpy(rng.randint(-amp, amp + 1, (2, nbh, nbw, 2)).astype(np.int32))
+    want = K.warp_block_field_plain(f.contiguous(), d, bs)
+    got = K.warp_block_field(buf.to(cuda)[1:].reshape(2, H, W), d.to(cuda), bs)
+    assert torch.equal(got.cpu(), want)
+    aligned = K.warp_block_field(f.contiguous().to(cuda), d.to(cuda), bs)
+    assert torch.equal(aligned.cpu(), want)
 
 
 def test_launch_counts_and_pipeline_equal_cpu(cuda):

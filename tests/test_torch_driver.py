@@ -30,6 +30,7 @@ from gme_tpu_torch.io import writers as twriters
 from gme_tpu_torch.io.video import write_y4m
 from gme_tpu_torch.models.gme import gme_pipeline_batch, gme_pipeline_batch_adaptive
 from gme_tpu_torch.pipeline import results as R
+from test_torch_ops import PARAM_ATOL
 
 cv2 = pytest.importorskip("cv2")
 
@@ -248,7 +249,10 @@ def test_pipeline_batch_adaptive_equals_jax(pairs, escapes):
     assert set(got) == set(want)
     for k in want:
         if k in ("parameters", "psnr"):
-            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=1e-4)
+            # Parameters: exact on FMA hosts (PARAM_ATOL); PSNR is an f32 mean
+            # over more than 2**24, 1e-4 dB (ROADMAP C6).
+            atol = PARAM_ATOL if k == "parameters" else 1e-4
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=atol)
         else:
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
         assert torch.equal(got[k], default[k]) or k == "volume_edge_hits", k

@@ -30,6 +30,7 @@ from gme_tpu_torch.ops import bbme as tbbme
 from gme_tpu_torch.ops import metrics as tmet
 from gme_tpu_torch.ops import pyramid as tpyr
 from gme_tpu_torch.ops import warp as twarp
+from gme_tpu_torch.utils.guards import debug_checks
 
 
 
@@ -205,12 +206,15 @@ def test_f32_fit_matches_jax(rng):
 
 
 def test_degenerate_fit_raises():
+    """Under `debug_checks()`, as the JAX package's checks raise only when
+    enabled (outside it the fit gives NaN: tests/test_torch_guards.py)."""
     field = torch.zeros((1, 1, 5, 2), dtype=torch.int32)  # one cell row: collinear
-    with pytest.raises(ValueError, match="singular"):
-        taff.fit_normal_equations(field, torch.ones((1, 1, 5), dtype=torch.bool), (16, 80), 4)
-    with pytest.raises(ValueError, match="empty"):
-        taff._fit_normal_equations_f32(
-            field, torch.zeros((1, 1, 5), dtype=torch.bool), (16, 80), 4)
+    with debug_checks():
+        with pytest.raises(ValueError, match="singular"):
+            taff.fit_normal_equations(field, torch.ones((1, 1, 5), dtype=torch.bool), (16, 80), 4)
+        with pytest.raises(ValueError, match="empty"):
+            taff._fit_normal_equations_f32(
+                field, torch.zeros((1, 1, 5), dtype=torch.bool), (16, 80), 4)
 
 
 @pytest.mark.parametrize("fraction", [0.0, 0.3, 0.5])
