@@ -22,26 +22,34 @@ Then it reads the latency-bound kernels at the default step's 720p shapes
 the package has it, and `warp_block_field`) and the launch floor (a
 one-element fill) three ways: CUDA events around a loop of wrapper calls,
 the device's own duration from torch.profiler, and the wrapper's host time
-a call.  Then it runs two volume kernels at their paths' shapes while nvidia-smi
-samples the SM clock: the offset-tiled `cost_volume_rowoffset`, whose pixel
-terms per second it holds against the shared-memory load bound at that
-clock (two byte loads per term, one warp-wide load per clock per SM), and
-the tensor-core `cost_volume_cross` in both modes, against the byte bound of
-`chip_smoke.bound`.  The last line is one JSON object with every number
-printed.  It imports neither `jax` nor
+a call.  Then it runs the volume kernels at their paths' shapes while
+nvidia-smi samples the SM clock: the packed-word `cost_volume_rowoffset` at
+the three-step (bs 12, D 51) and bs-20 diamond (D 65) shapes, and the
+tensor-core `cost_volume_cross` in both modes, each against the bound of
+`chip_smoke.bound` (int32 operations or bytes), with its device time from
+torch.profiler.  Where the toolkit has cuobjdump, it writes the SASS of the
+row-offset kernel's three-step instantiation (`<3, 0>`: three words a block
+row, MAE) to chiprun_out/ and prints its instruction mix.  The last line is
+one JSON object with every number printed.  It imports neither `jax` nor
 `gme_tpu`, and needs the card.
 """
 
 import argparse
+import collections
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-from chip_smoke import (BATCH_720P, BATCH_SEARCH, CLI_BS, CLI_SW, GME_OPTIONS, PAN_STEP,
-                        SEARCH_NAMES, bound, cuda_ms, device_ms, host_us, synthetic_pan)
+from chip_smoke import (BATCH_720P, BATCH_SEARCH, BS20_BATCH, BS20_RADIUS, CLI_BS, CLI_SW,
+                        GME_OPTIONS, PAN_STEP, SEARCH_NAMES, bound, cuda_ms, device_ms, host_us,
+                        synthetic_pan)
+
+# The row-offset kernel's three-step instantiation: 3 words a block row, MAE.
+THREE_STEP_SASS = "cost_volume_rowoffset_kernelILi3ELi0E"
 
 
 def smi(*fields):
@@ -114,6 +122,31 @@ def clocked(torch, fn, seconds=2.0):
         raise RuntimeError(f"nvidia-smi gave too few SM clock samples: {out!r}")
     under_load = float(np.median(mhz[1:-1]))
     return under_load, float(smi("clocks.max.sm").split()[0])
+
+
+def sass_mix(K):
+    """Instruction counts of the row-offset kernel's three-step instantiation
+    by opcode, its SASS written to chiprun_out/; None where the toolkit has no
+    cuobjdump or the library has no such function."""
+    import chip_smoke
+
+    sass = chip_smoke.read_sass(K, K.build().path)
+    if sass is None:
+        return None
+    funcs = chip_smoke.sass_functions(sass)
+    fn = next((f for f in funcs if THREE_STEP_SASS in f), None)
+    if fn is None:
+        return None
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "sass_cost_volume_rowoffset_w3_mae.txt"), "w") as f:
+        f.write("\n".join(funcs[fn]) + "\n")
+    mix = collections.Counter()
+    for line in funcs[fn]:
+        op = line.split("*/", 1)[1].split(";")[0].split()
+        op = op[1] if op and op[0].startswith("@") and len(op) > 1 else (op[0] if op else "?")
+        mix[op.split(".")[0]] += 1
+    return dict(mix.most_common())
 
 
 def latency_bound_kernels(torch, K, bbme, prev, curr, cfg, dev, card, reps=10):
@@ -203,10 +236,14 @@ def main():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     R3 = bbme.threestep_search_radius(CLI_BS, CLI_SW)
     p3, c3 = bbme.volume_inputs(sp_prev, sp_curr, CLI_BS, R3)
+    p20, c20 = bbme.volume_inputs(prev[:BS20_BATCH], curr[:BS20_BATCH], 20, BS20_RADIUS)
+    D20 = 2 * BS20_RADIUS + 1
     p64, c64 = bbme.volume_inputs(sp_prev, sp_curr, cfg.block_size, 64)
     shapes = {
         "cost_volume_rowoffset": (p3, c3, CLI_BS, 2 * R3 + 1,
                                   lambda: K.cost_volume_rowoffset(p3, c3, CLI_BS, 2 * R3 + 1, MAE)),
+        "cost_volume_rowoffset bs20": (p20, c20, 20, D20,
+                                       lambda: K.cost_volume_rowoffset(p20, c20, 20, D20, MAE)),
         "cost_volume_cross": (p64, c64, cfg.block_size, 129,
                               lambda: K.cost_volume_cross(p64, c64, cfg.block_size, 129)),
         "cost_volume_cross ssd": (p64, c64, cfg.block_size, 129,
@@ -215,23 +252,25 @@ def main():
     }
     for kernel, (p, c, bs, D, fn) in shapes.items():
         ms = cuda_ms(torch, fn, 10)
+        dev_ms, _ = device_ms(torch, fn, 10)
         mhz, max_mhz = clocked(torch, fn)
-        rec = {"shape": [list(p.shape), bs, D], "ms": ms, "sm_mhz_under_load": mhz,
-               "sm_mhz_max": max_mhz, "sms": sms}
-        if kernel == "cost_volume_rowoffset":
-            rate = p.numel() * D * D / (ms * 1e-3)
-            load_bound = sms * 32 * mhz * 1e6 / 2
-            rec.update(terms_per_s=rate, load_bound=load_bound, share_of_bound=rate / load_bound)
-            what = (f"{rate / 1e12:.3f} T terms/s; load bound {load_bound / 1e12:.3f} T/s, "
-                    f"{rate / load_bound:.3f} of it")
-        else:
-            bound_ms, by, _ = bound(K, "cost_volume_cross", (p, c, bs, D))
-            rec.update(bound_ms=bound_ms, bound_by=by, share_of_bound=bound_ms / ms)
-            what = f"bound {bound_ms:.4f} ms by {by}, {bound_ms / ms:.3f} of it"
+        args = (p, c, bs, D) + ((MAE,) if kernel.startswith("cost_volume_rowoffset") else ())
+        bound_ms, by, binds = bound(K, kernel.split()[0], args)
+        rec = {"shape": [list(p.shape), bs, D], "ms": ms, "device_ms": dev_ms,
+               "sm_mhz_under_load": mhz, "sm_mhz_max": max_mhz, "sms": sms, "bound_ms": bound_ms,
+               "bound_by": by, "share_of_bound": bound_ms / ms, "device_share": bound_ms / dev_ms}
+        if kernel.startswith("cost_volume_rowoffset"):
+            rec["terms_per_s"] = p.numel() * D * D / (dev_ms * 1e-3)
         result["kernels"][kernel] = rec
-        print(f"[kernel] {kernel} B={p.shape[0]} {tuple(p.shape[1:])} bs={bs} D={D}: {ms:.4f} ms, "
-              f"{what}; SM clock under load {mhz:.0f} MHz (max {max_mhz:.0f}), {sms} SMs ({card})",
-              flush=True)
+        print(f"[kernel] {kernel} B={p.shape[0]} {tuple(p.shape[1:])} bs={bs} D={D}: {ms:.4f} ms "
+              f"(events), device {dev_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} ({binds}), "
+              f"{bound_ms / ms:.3f} of it, {bound_ms / dev_ms:.3f} of the device time; SM clock "
+              f"under load {mhz:.0f} MHz (max {max_mhz:.0f}), {sms} SMs ({card})", flush=True)
+    mix = sass_mix(K)
+    result["sass_three_step"] = mix
+    print(f"[sass] cost_volume_rowoffset<3, 0> (three-step: bs 9-12, MAE) instructions by opcode: "
+          f"{mix if mix is not None else 'not read (no cuobjdump, or no such instantiation)'}",
+          flush=True)
     print(json.dumps(result))
     return 0
 

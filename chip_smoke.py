@@ -8,7 +8,9 @@ the CUDA toolkit.  It builds the port's seven kernels from the sources in
 the checkout (one nvcc per source, side by side, with a one-thread
 pointer-chase probe beside them; where the toolkit has cuobjdump, it fails
 unless the SASS of cost_volume_mse_block and of cost_volume_cross holds
-integer tensor-core instructions), holds each kernel to its plain PyTorch
+integer tensor-core instructions and every instantiation of
+cost_volume_rowoffset holds IDP.4A, the packed-word path; it fails if ptxas
+reports spills in a packed-word volume kernel), holds each kernel to its plain PyTorch
 version at the shapes its path gives it (the volume chase also to the
 rank-map chase on the rank map, at the 720p level-2, dense-init, radius-64
 and bs-20 shapes, cut at 1, 3 and 4096 steps) and times both, with the
@@ -93,7 +95,7 @@ DEFAULT_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block", "chase_vo
 DRIVER_FRAMES, DRIVER_HW = BATCH_720P * 4 + 1, (720, 1280)
 ADAPTIVE_FRAMES, ADAPTIVE_PAN, ADAPTIVE_BAR = BATCH_720P + 1, (10, 14), 64
 CLI_FRAMES, CLI_HW, CLI_BATCH = 207, (240, 320), 32
-BS20_BATCH = 8
+BS20_BATCH, BS20_RADIUS = 8, 32  # the volume diamond at bs 20: get_motion_field's radius
 # The step counts at which the chases are held to each other.
 CHASE_ITERS = (1, 3, 4096)
 # Cells of a volume-chase call that `counted()` keeps for `[paths]`: a volume
@@ -113,6 +115,15 @@ OPS_RATE = {"int8 tensor": INT8_TENSOR_OPS_PER_S, "int32": INT32_OPS_PER_S}
 SSD_MAX = 16 * 16 * 255 ** 2  # the largest block SSD at bs 16
 # The kernels whose SASS must hold integer tensor-core instructions.
 TENSOR_CORE_KERNELS = ("cost_volume_mse_block", "cost_volume_cross")
+TENSOR_CORE_OPS = r"\bIG?MMA\b"
+# The packed-word volume: four pixel terms in one __dp4a (IDP.4A), after one
+# __vabsdiffu4 (VABSDIFF4) for MAE and MSE.  Every instantiation of the
+# row-offset kernel must hold IDP.4A; ptxas must report no spills in any
+# packed-word volume kernel.
+PACKED_KERNEL = "cost_volume_rowoffset"
+DP4A_OPS, VABSDIFF_OPS = r"\bIDP\.4A\b", r"\bVABSDIFF4\b"
+PACKED_KERNELS = ("cost_volume_rowoffset", "cost_volume_cross_tiles", "cost_volume_cross_small",
+                  "cost_volume_cross_wide", "cost_volume_small_block")
 
 # One thread following a cycle of dependent int32 loads: the latency of one
 # dependent global load, at the cache level the cycle's working set lives in.
@@ -257,24 +268,35 @@ def ptxas_summary(log):
     return out
 
 
-def tensor_core_instructions(K, library):
-    """{kernel function: count of integer tensor-core instructions (IMMA,
-    IGMMA)} in the built library's SASS, or None where the toolkit has no
-    cuobjdump."""
+def read_sass(K, library):
+    """`cuobjdump -sass` of the built library, or None where the toolkit
+    has no cuobjdump."""
     tool = os.path.join(os.path.dirname(K.find_nvcc()), "cuobjdump")
     tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
     if not tool:
         return None
     res = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
-    counts, fn = {}, None
-    for line in res.stdout.splitlines():
+    return res.stdout
+
+
+def sass_functions(sass):
+    """{kernel function (mangled): its SASS instruction lines} of a
+    `cuobjdump -sass` listing."""
+    funcs, fn = {}, None
+    for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn and re.search(r"\bIG?MMA\b", line):
-            counts[fn] += 1
-    return counts
+            funcs[fn] = []
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            funcs[fn].append(line)
+    return funcs
+
+
+def sass_counts(funcs, opcode):
+    """{kernel function: count of its instructions that match the regex
+    `opcode`} (a predicated instruction counts too)."""
+    return {fn: sum(1 for line in lines if re.search(opcode, line)) for fn, lines in funcs.items()}
 
 
 def chase_loads(K, rank, bounds, D, R, iters):
@@ -803,7 +825,12 @@ def run(torch):
         check(any(k.split("<")[0] == kernel for k in summary), f"ptxas printed nothing for {kernel}")
     for name_args, line in sorted(summary.items()):
         phase("build", f"{name_args}: {line}")
-    tc = tensor_core_instructions(K, built.path)
+    spilled = [k for k, line in summary.items() if k.startswith(PACKED_KERNELS)
+               and "spill stores 0 B, spill loads 0 B" not in line]
+    check(not spilled, f"ptxas reports spills in packed-word volume kernels: {spilled}")
+    sass = read_sass(K, built.path)
+    funcs = sass_functions(sass) if sass is not None else None
+    tc = sass_counts(funcs, TENSOR_CORE_OPS) if funcs is not None else None
     for kernel in TENSOR_CORE_KERNELS:
         if tc is None:
             phase("build", f"no cuobjdump in the toolkit: the SASS of {kernel} is not read")
@@ -813,6 +840,15 @@ def run(torch):
         phase("build", f"{kernel} SASS: {n_tc} integer tensor-core instructions "
               f"(IMMA/IGMMA) over {len(fns)} instantiations")
         check(n_tc > 0, f"{kernel}'s SASS holds no IMMA/IGMMA: the tensor-core path was not built")
+    if funcs is not None:
+        dp4a = {f: n for f, n in sass_counts(funcs, DP4A_OPS).items() if PACKED_KERNEL in f}
+        vabs = sass_counts(funcs, VABSDIFF_OPS)
+        bare = [f for f, n in dp4a.items() if n == 0]
+        check(dp4a and not bare, f"{PACKED_KERNEL}: instantiations without IDP.4A: {bare}")
+        phase("build", f"{PACKED_KERNEL} SASS: IDP.4A in all {len(dp4a)} instantiations "
+              f"({min(dp4a.values())}-{max(dp4a.values())} each), VABSDIFF4 "
+              f"{sum(vabs[f] for f in dp4a)} in all; no spills in {len(PACKED_KERNELS)} "
+              "packed-word kernel families")
     K.load_library()
 
     # Inputs at the main path's 720p shapes: the 24-pair synthetic pan.
@@ -975,6 +1011,19 @@ def run(torch):
     compare("cost_volume_rowoffset", (p3, c3, CLI_BS, D3, MAE),
             f"B={BATCH_SEARCH} {tuple(prev.shape[1:])} MAE bs={CLI_BS} D={D3} (three-step)")
     del p3, c3
+    # The exhaustive search's volume at the same defaults: D = 2 sw + bs = 28.
+    pe, ce = bbme.exhaustive_inputs(prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], CLI_BS, CLI_SW)
+    De = 2 * CLI_SW + CLI_BS
+    compare("cost_volume_rowoffset", (pe, ce, CLI_BS, De, MAE),
+            f"B={BATCH_SEARCH} {tuple(prev.shape[1:])} MAE bs={CLI_BS} D={De} (exhaustive)",
+            main=False)
+    del pe, ce
+    # The volume diamond at bs 20: MAE, D 65.
+    p20, c20 = bbme.volume_inputs(prev[:BS20_BATCH], curr[:BS20_BATCH], 20, BS20_RADIUS)
+    compare("cost_volume_rowoffset", (p20, c20, 20, 2 * BS20_RADIUS + 1, MAE),
+            f"B={BS20_BATCH} {tuple(prev.shape[1:])} MAE bs=20 D={2 * BS20_RADIUS + 1} "
+            "(volume diamond at bs 20)", main=False)
+    del p20, c20
 
     # The level-2 cross volume of the GME step at volume_radius=64: B 8,
     # bs 16, D 129; its yardstick is one grouped conv2d in float32 (exact:
@@ -1026,12 +1075,11 @@ def run(torch):
     # `_succ_map`'s map, cut at 1, 3 and 4096 steps; the rank-map chase keeps
     # its timed comparison at level 2.
     H, W = prev.shape[1:]
-    R20 = 32  # get_motion_field's default volume radius
     chase_shapes = [
         ("level 2", prev, curr, bs, R2, MSE, True),
         ("dense init", prev_pyr[0], curr_pyr[0], bs0, R0, MSE, False),
         ("radius 64", prev[:BATCH_SEARCH], curr[:BATCH_SEARCH], bs, R64, MSE, False),
-        ("bs 20", prev[:BS20_BATCH], curr[:BS20_BATCH], 20, R20, MAE, False),
+        ("bs 20", prev[:BS20_BATCH], curr[:BS20_BATCH], 20, BS20_RADIUS, MAE, False),
     ]
     for label, p, c, cbs, R, pnorm, main in chase_shapes:
         Hs, Ws = p.shape[1:]

@@ -25,8 +25,10 @@
 // the bands of one cell, so its window rows meet in L2.
 //
 // Other block sizes (cross mode to bs 181, SSD mode below bs 8) take the
-// offset tiles of cost_volume_tiles.cuh: one multiply-add and two
-// shared-memory byte loads per pixel term.
+// packed-word routes of cost_volume_tiles.cuh that cost_volume_rowoffset.cu
+// runs: one __dp4a a word of four cross terms (SSD mode: the direct MSE,
+// __vabsdiffu4 and __dp4a), in 4 x 4 register tiles of offsets at bs 3 and
+// 5..32, the small-block body at bs 1, 2, 4, byte-staged tiles above bs 32.
 //
 // Exactness: int32 sums from uint8, rounded to float32 once; at bs <= 16
 // every sum is at most 16 * 16 * 255^2 = 16,646,400 < 2**24, so both modes
@@ -80,11 +82,35 @@ cudaError_t launch_bs(const uint8_t* p, const uint8_t* c, float* o, int B, int H
   }
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(gme_tiles::kThreads) cost_volume_cross_tiles_kernel(
+template <int W, int kMode>
+__global__ void __launch_bounds__(gme_vol::kThreads) cost_volume_cross_tiles_kernel(
     const uint8_t* __restrict__ prev, const uint8_t* __restrict__ curr,
-    float* __restrict__ out, int Hc, int Wc, int bs, int D, gme_tiles::Tiles tl) {
-  gme_tiles::volume_tile<kMode>(prev, curr, out, Hc, Wc, bs, D, tl);
+    float* __restrict__ out, int Hc, int Wc, int bs, int D, gme_vol::PackedPlan pl) {
+  gme_vol::packed_tile<W, kMode>(prev, curr, out, Hc, Wc, bs, D, pl);
+}
+
+template <int BS, int kMode>
+__global__ void __launch_bounds__(gme_vol::kSmallThreads) cost_volume_cross_small_kernel(
+    const uint8_t* __restrict__ prev, const uint8_t* __restrict__ curr,
+    float* __restrict__ out, int Hc, int Wc, int D, int T, int R, int parts) {
+  gme_vol::small_block_volume<BS, kMode>(prev, curr, out, Hc, Wc, D, T, R, parts);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(gme_vol::kThreads) cost_volume_cross_wide_kernel(
+    const uint8_t* __restrict__ prev, const uint8_t* __restrict__ curr,
+    float* __restrict__ out, int Hc, int Wc, int bs, int D, gme_vol::Tiles tl) {
+  gme_vol::volume_tile<kMode>(prev, curr, out, Hc, Wc, bs, D, tl);
+}
+
+// The packed-word routes outside bs 8..16: kCross, or kMse for SSD mode.
+template <int kMode>
+cudaError_t launch_tiles(const uint8_t* p, const uint8_t* c, float* o, int B, int Hc, int Wc,
+                         int bs, int D, cudaStream_t s) {
+  return gme_vol::launch_volume(
+      [](auto n) { return cost_volume_cross_small_kernel<decltype(n)::value, kMode>; },
+      [](auto n) { return cost_volume_cross_tiles_kernel<decltype(n)::value, kMode>; },
+      cost_volume_cross_wide_kernel<kMode>, p, c, o, B, Hc, Wc, bs, D, s);
 }
 
 }  // namespace
@@ -100,10 +126,7 @@ GME_API int gme_cost_volume_cross(const void* prev, const void* curr_pad, void* 
   if (bs >= 8 && bs <= 16)
     return ssd ? launch_bs<true>(p, c, o, B, Hc, Wc, bs, D, s)
                : launch_bs<false>(p, c, o, B, Hc, Wc, bs, D, s);
-  if (ssd)
-    return bs < 8 ? gme_tiles::launch_tiles(cost_volume_cross_tiles_kernel<gme_tiles::kMse>, B, Hc,
-                                            Wc, bs, D, stream, p, c, o, Hc, Wc, bs, D)
-                  : cudaErrorInvalidValue;
-  return gme_tiles::launch_tiles(cost_volume_cross_tiles_kernel<gme_tiles::kCross>, B, Hc, Wc, bs,
-                                 D, stream, p, c, o, Hc, Wc, bs, D);
+  if (ssd) return bs < 8 ? launch_tiles<gme_vol::kMse>(p, c, o, B, Hc, Wc, bs, D, s)
+                        : cudaErrorInvalidValue;
+  return launch_tiles<gme_vol::kCross>(p, c, o, B, Hc, Wc, bs, D, s);
 }

@@ -1,4 +1,5 @@
-// Block-DFD cost volume for small blocks (bs < 8, 8 % bs == 0, D >= 8).
+// Block-DFD cost volume for small blocks (bs < 8, 8 % bs == 0, D >= 8: the
+// JAX dispatch's rule for this kernel; the body itself takes any D).
 //
 // Replaces gme_tpu/ops/pallas_kernels.py:_planes_kernel (reached through
 // _dfd_cost_volume_planes): the MAE/MSE volume of the dense init, bs = 2 and
@@ -14,162 +15,30 @@
 // Bound on the H100: the output write.  Each output is bs^2 <= 16 pixel
 // terms against a 4-byte store: at 720p (B 24, 180x320, bs 2, D 33) 1.505 GB
 // of float32, 0.45 ms at 3.35 TB/s, against 3 G int32 operations.
-// Design, for bytes in flight:
-// - One CUDA block per run of T cells of one block row (T*D^2 about 8192
-//   outputs), or, where one cell has more outputs than that (D > 90), per
-//   band of R offset rows of one cell; either way its outputs are one
-//   contiguous range of the volume.
-// - The block stages its prev strip and curr window (the strip plus the
-//   D-1 halo) in shared memory as packed 32-bit words, one per (block row,
-//   offset): a bs = 2 block's four pixels in one word, one word per pixel
-//   row at bs = 4, one byte at bs = 1.  An output is then one shared load,
-//   __vabsdiffu4 and __dp4a per word (|d| summed against ones for MAE, |d|
-//   against itself for MSE), exact in int32.  Packing trades shared memory
-//   (4 bytes per window position) for those three instructions an output.
-// - Each thread computes four consecutive flat outputs and writes them as
-//   one 16-byte streaming store at a flat index that is a multiple of 4;
-//   the at most 3 + 3 outputs before the first and after the last aligned
-//   index of the range are stored one by one.  Consecutive threads take
-//   consecutive quads: coalesced stores.
-// - A thread carries (cell, dr, dc) of its quad from one quad to the next
-//   by a fixed step, and across the quad's four outputs, with no division
-//   per output.
-// - The quads of a block are spread over all its threads, 8.5 passes at
-//   D 33, so only the last pass runs partly idle.
-// bs and the norm are template arguments, so the pixel loops unroll.
-#include "gme_kernels.cuh"
+// Design (cost_volume_small_block.cuh, shared with cost_volume_rowoffset.cu
+// and cost_volume_cross.cu at these block sizes): packed 32-bit words in
+// shared memory, one __vabsdiffu4 and __dp4a per word, four consecutive
+// outputs a thread in one 16-byte streaming store.  bs and the norm are
+// template arguments, so the pixel loops unroll.
+#include "cost_volume_small_block.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kOutputsPerBlock = 8192;
+using gme_vol::kMae;
+using gme_vol::kMse;
 
-// Window bytes packed into one 32-bit word per (block row, offset): a bs = 2
-// block is one word (its two rows of two bytes); a bs = 4 block is four
-// words, one per row; bs = 1 is one byte in a word.
-template <int BS> struct Pack {
-  static constexpr int kRows = BS == 2 ? 2 : 1;  // window rows in one word
-  static constexpr int kWords = BS == 4 ? 4 : 1; // words per block
-};
-
-template <int BS>
-__device__ __forceinline__ uint32_t pack(const uint8_t* p, size_t row) {
-  uint32_t w = 0;
-#pragma unroll
-  for (int r = 0; r < Pack<BS>::kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < BS; ++c) w |= (uint32_t)p[r * row + c] << (8 * (r * BS + c));
-  return w;
-}
-
-// sum over the word's bytes of |a - b| (MAE) or (a - b)^2 (MSE), added to acc.
-template <bool SQ>
-__device__ __forceinline__ unsigned dfd4(uint32_t a, uint32_t b, unsigned acc) {
-  const unsigned d = __vabsdiffu4(a, b);
-  return __dp4a(d, SQ ? d : 0x01010101u, acc);
-}
-
-// A CUDA block covers the offsets dr in [r0, r0 + nr) of tc cells of one
-// block row: either several whole cells (nr = D) or, where one cell's D^2
-// outputs are too many, one band of its offset rows.  Either way its
-// outputs are one contiguous run of tc * nr * D floats.
-template <int BS, bool SQ>
-__global__ void __launch_bounds__(kThreads) cost_volume_small_block_kernel(
+template <int BS, int kMode>
+__global__ void __launch_bounds__(gme_vol::kSmallThreads) cost_volume_small_block_kernel(
     const uint8_t* __restrict__ prev, const uint8_t* __restrict__ curr,
     float* __restrict__ out, int Hc, int Wc, int D, int T, int R, int parts) {
-  using P = Pack<BS>;
-  extern __shared__ uint32_t smem[];
-  const int nbh = Hc / BS, nbw = Wc / BS;
-  const int Hp = Hc + D - 1, Wp = Wc + D - 1;
-  const int part = blockIdx.x % parts, j0 = (blockIdx.x / parts) * T;
-  const int t = blockIdx.y, b = blockIdx.z;
-  const int tc = min(T, nbw - j0), r0 = part * R, nr = min(R, D - r0);
-  const int ph = nr + BS - P::kRows, pw = tc * BS + D - BS;  // packed window
-  uint32_t* prev_w = smem;                                   // tc * kWords
-  uint32_t* win_w = smem + T * P::kWords;                    // ph x pw
-  const uint8_t* prev_b = prev + ((size_t)b * Hc + (size_t)t * BS) * Wc + (size_t)j0 * BS;
-  const uint8_t* curr_b =
-      curr + ((size_t)b * Hp + (size_t)t * BS + r0) * Wp + (size_t)j0 * BS;
-  for (int i = threadIdx.x; i < tc * P::kWords; i += kThreads) {
-    const int cell = i / P::kWords, r = (i - cell * P::kWords) * P::kRows;
-    prev_w[i] = pack<BS>(prev_b + (size_t)r * Wc + cell * BS, Wc);
-  }
-  for (int i = threadIdx.x; i < ph * pw; i += kThreads) {
-    const int y = i / pw, x = i - y * pw;
-    win_w[i] = pack<BS>(curr_b + (size_t)y * Wp + x, Wp);
-  }
-  __syncthreads();
-
-  const int DDc = nr * D, n = tc * DDc;  // outputs per cell here, and in all
-  const size_t first =
-      (((size_t)b * nbh + t) * nbw + j0) * (size_t)D * D + (size_t)r0 * D;
-  float* dst = out + first;
-  const int head = min(n, (int)((4 - first % 4) % 4));
-  const int nq = (n - head) / 4, tail = head + 4 * nq;
-  const int rstep = pw * P::kRows;  // words between block rows of a bs = 4 block
-
-  // One output at (cell, dr, dc), dr counted from r0.
-  auto dfd = [&](int cell, int dr, int dc) {
-    const uint32_t* w = win_w + dr * pw + cell * BS + dc;
-    const uint32_t* p = prev_w + cell * P::kWords;
-    unsigned acc = 0;
-#pragma unroll
-    for (int k = 0; k < P::kWords; ++k) acc = dfd4<SQ>(w[k * rstep], p[k], acc);
-    return (float)acc;
-  };
-
-  // The ragged ends, one output each.
-  const int tid = threadIdx.x;
-  const int f1 = tid < head ? tid : tail + tid - head;
-  if (tid < head + (n - tail)) {
-    const int cell = f1 / DDc, rem = f1 - cell * DDc, dr = rem / D;
-    dst[f1] = dfd(cell, dr, rem - dr * D);
-  }
-
-  // The aligned quads: (cell, dr, dc) of this thread's first output, carried
-  // by the fixed step between its quads, and across the quad's outputs.
-  const int step = 4 * kThreads;
-  const int s_cell = step / DDc, s_rem = step - s_cell * DDc;
-  const int s_dr = s_rem / D, s_dc = s_rem - s_dr * D;
-  const int f0 = head + 4 * tid;
-  int cell = f0 / DDc, dr = (f0 - cell * DDc) / D, dc = f0 - cell * DDc - dr * D;
-  for (int q = tid; q < nq; q += kThreads) {
-    float v[4];
-    int ce = cell, re = dr, de = dc;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[e] = dfd(ce, re, de);
-      if (++de == D) {
-        de = 0;
-        if (++re == nr) re = 0, ++ce;
-      }
-    }
-    __stcs(reinterpret_cast<float4*>(dst + head + 4 * q), make_float4(v[0], v[1], v[2], v[3]));
-    dc += s_dc;
-    if (dc >= D) dc -= D, ++dr;
-    dr += s_dr;
-    if (dr >= nr) dr -= nr, ++cell;
-    cell += s_cell;
-  }
+  gme_vol::small_block_volume<BS, kMode>(prev, curr, out, Hc, Wc, D, T, R, parts);
 }
 
-template <int BS, bool SQ>
-cudaError_t launch(const uint8_t* prev, const uint8_t* curr, float* out, int B, int Hc,
-                   int Wc, int D, cudaStream_t stream) {
-  using P = Pack<BS>;
-  const int nbh = Hc / BS, nbw = Wc / BS;
-  // About kOutputsPerBlock outputs a block: whole cells, or bands of R rows.
-  const int T = max(1, min(nbw, (kOutputsPerBlock + D * D - 1) / (D * D)));
-  const int R = T > 1 ? D : min(D, (kOutputsPerBlock + D - 1) / D);
-  const int parts = (D + R - 1) / R;
-  const dim3 grid((nbw + T - 1) / T * parts, nbh, B);
-  const size_t shared = sizeof(uint32_t) * ((size_t)T * P::kWords +
-                                            (size_t)(R + BS - P::kRows) * (T * BS + D - BS));
-  cudaError_t err = gme_allow_shared(cost_volume_small_block_kernel<BS, SQ>, shared);
-  if (err != cudaSuccess) return err;
-  cost_volume_small_block_kernel<BS, SQ><<<grid, kThreads, shared, stream>>>(
-      prev, curr, out, Hc, Wc, D, T, R, parts);
-  return cudaGetLastError();
+template <int BS, int kMode>
+cudaError_t launch(const uint8_t* p, const uint8_t* c, float* o, int B, int Hc, int Wc, int D,
+                   cudaStream_t s) {
+  return gme_vol::launch_small<BS>(cost_volume_small_block_kernel<BS, kMode>, p, c, o, B, Hc, Wc,
+                                   D, s);
 }
 
 }  // namespace
@@ -183,12 +52,12 @@ GME_API int gme_cost_volume_small_block(const void* prev, const void* curr_pad,
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (bs * 2 + (pnorm ? 1 : 0)) {
-    case 2: return launch<1, false>(p, c, o, B, Hc, Wc, D, s);
-    case 3: return launch<1, true>(p, c, o, B, Hc, Wc, D, s);
-    case 4: return launch<2, false>(p, c, o, B, Hc, Wc, D, s);
-    case 5: return launch<2, true>(p, c, o, B, Hc, Wc, D, s);
-    case 8: return launch<4, false>(p, c, o, B, Hc, Wc, D, s);
-    case 9: return launch<4, true>(p, c, o, B, Hc, Wc, D, s);
+    case 2: return launch<1, kMae>(p, c, o, B, Hc, Wc, D, s);
+    case 3: return launch<1, kMse>(p, c, o, B, Hc, Wc, D, s);
+    case 4: return launch<2, kMae>(p, c, o, B, Hc, Wc, D, s);
+    case 5: return launch<2, kMse>(p, c, o, B, Hc, Wc, D, s);
+    case 8: return launch<4, kMae>(p, c, o, B, Hc, Wc, D, s);
+    case 9: return launch<4, kMse>(p, c, o, B, Hc, Wc, D, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -61,7 +61,8 @@ _SOURCES = (
     "warp_block_field.cu",
     "errors.cu",
 )
-_HEADERS = ("gme_kernels.cuh", "cost_volume_tiles.cuh", "cost_volume_mma.cuh")
+_HEADERS = ("gme_kernels.cuh", "cost_volume_small_block.cuh", "cost_volume_tiles.cuh",
+            "cost_volume_mma.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = _ARCH + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -381,8 +382,10 @@ def cost_volume_rowoffset(
     (B, Hc+D-1, Wc+D-1) curr_pad.
 
     Replaces pallas_kernels.py:_cost_volume_kernel; integer-op bound at large
-    bs and output bound at small bs on the H100, offset-tiled
-    (see csrc/cost_volume_rowoffset.cu)."""
+    bs and output bound at small bs on the H100: pixels packed four to a
+    word (`__vabsdiffu4` + `__dp4a`), 4 x 4 register tiles of offsets at
+    bs 3 and 5..32, the small-block body at bs 1, 2, 4 (see
+    csrc/cost_volume_rowoffset.cu)."""
     if pnorm not in (MAE, MSE):
         raise ValueError(f"unknown pnorm index {pnorm}")
     _check_block_sum(bs, pnorm, D)
@@ -408,7 +411,8 @@ def cost_volume_cross(
 
     Replaces pallas_kernels.py:_cross_volume_kernel; bound by its output
     writes on the H100, the cross term on the u8 tensor cores in bands of
-    offset rows at 8 <= bs <= 16, offset-tiled at other block sizes (see
+    offset rows at 8 <= bs <= 16, the packed-word routes of
+    `cost_volume_rowoffset` at other block sizes (see
     csrc/cost_volume_cross.cu)."""
     _check_block_sum(bs, MSE, D)
     if ssd and bs > 16:

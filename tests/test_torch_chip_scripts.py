@@ -44,6 +44,13 @@ def _meta(*shape, dtype=torch.uint8):
      "operations", "int32 ops"),
     ("warp_block_field", (_meta(24, 720, 1280), _meta(24, 45, 80, 2, dtype=torch.int32), 16), 0.0134,
      "bytes", "bytes"),
+    # the volume diamond at bs 20 (D 65): int32 operations bind
+    ("cost_volume_rowoffset", (_meta(8, 720, 1280), _meta(8, 784, 1344), 20, 65, MAE), 0.9311,
+     "operations", "int32 ops"),
+    # the exhaustive dense init of `-sp 0` (bs 2, D 6): 4 pixels an output, the
+    # output writes bind
+    ("cost_volume_rowoffset", (_meta(24, 180, 320), _meta(24, 185, 325), 2, 6, MSE), 0.0157,
+     "bytes", "bytes"),
 ])
 def test_bound_of_main_path_shapes(kernel, args, ms, by, binds):
     bound_ms, bound_by, what = chip_smoke.bound(K, kernel, args)
@@ -188,3 +195,34 @@ def test_ptxas_summary_names_template_instantiations():
                             "warp_block_field"}
     assert "64 registers, static smem 32 B" in summary["cost_volume_mse_block<16>"]
 
+
+SASS_LISTING = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_128cost_volume_rowoffset_kernelILi3ELi0EEEvPKhS2_PfiiiiiN7gme_vol10PackedPlanE
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/                   VABSDIFF4.U8 R8, R9, R10, RZ ;  /* 0x000000090a087246 */
+        /*0020*/                   IDP.4A.U8.U8 R5, R8, R11, R5 ;  /* 0x0000000b08057226 */
+        /*0030*/              @!P0 IDP.4A.U8.U8 R6, R8, R8, R6 ;  /* 0x0000000808068226 */
+\t\t..........
+\t\tFunction : _ZN12_GLOBAL__N_134cost_volume_rowoffset_wide_kernelILi1EEEvPKhS2_PfiiiiN7gme_vol5TilesE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/                   IMAD R2, R3, R4, R5 ;           /* 0x0000000403027224 */
+\t\tFunction : _ZN12_GLOBAL__N_124cost_volume_cross_kernelILi8ELb0EEEvPKhS2_Pfiiiii
+        /*0000*/                   IMMA.16832.U8.U8 R4, R8, R12, R4 ;  /* 0x0000000c08047237 */
+"""
+
+
+def test_sass_counts_per_function():
+    """The build phase's SASS reading: the instructions of each kernel
+    function, and the counts of an opcode in each (IDP.4A for the packed
+    row-offset kernel, IMMA for the tensor-core ones), predicated ones
+    included."""
+    funcs = chip_smoke.sass_functions(SASS_LISTING)
+    assert [len(lines) for lines in funcs.values()] == [4, 2, 1]
+    dp4a = chip_smoke.sass_counts(funcs, chip_smoke.DP4A_OPS)
+    packed = {f: n for f, n in dp4a.items() if chip_smoke.PACKED_KERNEL in f}
+    assert sorted(packed.values()) == [0, 2]  # the wide kernel here holds none
+    assert sum(chip_smoke.sass_counts(funcs, chip_smoke.VABSDIFF_OPS).values()) == 1
+    tc = chip_smoke.sass_counts(funcs, chip_smoke.TENSOR_CORE_OPS)
+    assert [n for f, n in tc.items() if "cost_volume_cross_kernel" in f] == [1]

@@ -132,10 +132,15 @@ def test_cost_volume_small_block_offset_row_bands(cuda, bs, D, pnorm):
 
 
 # (bs, Hc, Wc, D): bs 1, odd bs, D < 8, D over several 16-offset tiles with
-# a ragged last tile, MSE bs 20 (sums above 2**24), partial cell tiles.
+# a ragged last tile, MSE bs 20 (sums above 2**24), partial cell tiles; then
+# runs of cells that no cell-run width divides (106 cells of bs 12 at D 51,
+# the three-step's row; 129 of bs 7), D over two bands of offset-column
+# tiles (D 130 at bs 3), and bs 32 and 33 either side of the packed tiles.
 ROWOFFSET_SHAPES = [
     (1, 9, 17, 5), (3, 21, 33, 7), (2, 36, 64, 6), (12, 48, 84, 51),
     (8, 40, 56, 9), (5, 25, 45, 37), (20, 40, 60, 21), (16, 32, 48, 3),
+    (12, 24, 1272, 51), (7, 14, 903, 9), (3, 6, 120, 130), (32, 64, 96, 13),
+    (33, 66, 99, 6),
 ]
 
 
@@ -147,6 +152,47 @@ def test_cost_volume_rowoffset(cuda, pnorm, bs, Hc, Wc, D):
     want = K.cost_volume_plain(prev, cpad, bs, D, pnorm)
     got = K.cost_volume_rowoffset(prev.to(cuda), cpad.to(cuda), bs, D, pnorm)
     assert torch.equal(got.cpu(), want)
+
+
+# Every bs % 4 residue on each route of the row-offset kernel: the small-block
+# body (bs 1, 2), the packed register tiles (3 .. 24; 1 to 6 words a block row,
+# a masked tail word wherever bs % 4 != 0) and the byte-staged tiles (33).
+PACKED_BS = [1, 2, 3, 5, 6, 7, 9, 12, 13, 20, 24, 33]
+# D below, at and above the 4 x 4 register tile, and not a multiple of it.
+PACKED_D = [1, 2, 5, 6, 28, 51, 65]
+
+
+@pytest.mark.parametrize("kind", FRAME_KINDS)
+@pytest.mark.parametrize("pnorm", [MAE, MSE])
+@pytest.mark.parametrize("D", PACKED_D)
+@pytest.mark.parametrize("bs", PACKED_BS)
+def test_cost_volume_rowoffset_packed_tiles(cuda, bs, D, pnorm, kind):
+    """The packed-word routes on 2 x 7 cells (7: no run of cells divides
+    it), B 2 (B 1 for constant frames), bit for bit against the plain
+    volume."""
+    rng = np.random.RandomState(bs * 1000 + D * 10 + pnorm)
+    B = 1 if kind == "constant" else 2
+    prev, cpad = (t.to(cuda) for t in _volume_frames(kind, rng, B, 2 * bs, 7 * bs, D))
+    want = K.cost_volume_plain(prev, cpad, bs, D, pnorm)
+    assert torch.equal(K.cost_volume_rowoffset(prev, cpad, bs, D, pnorm), want)
+
+
+@pytest.mark.parametrize("kind", FRAME_KINDS)
+@pytest.mark.parametrize("D", [1, 6, 28, 65])
+@pytest.mark.parametrize("bs", [1, 2, 3, 4, 5, 6, 7, 17, 20, 33])
+def test_cost_volume_cross_tile_routes(cuda, bs, D, kind):
+    """The cross kernel outside bs 8..16 runs the row-offset kernel's packed
+    routes: the cross term at every such bs, and SSD mode (the direct MSE)
+    below bs 8, each bit for bit against its plain version."""
+    rng = np.random.RandomState(bs * 1000 + D)
+    B = 1 if kind == "constant" else 2
+    prev, cpad = (t.to(cuda) for t in _volume_frames(kind, rng, B, 2 * bs, 5 * bs, D))
+    assert torch.equal(K.cost_volume_cross(prev, cpad, bs, D),
+                       K.cost_volume_cross_plain(prev, cpad, bs, D))
+    if bs < 8:
+        ssd = K.cost_volume_cross(prev, cpad, bs, D, ssd=True)
+        assert torch.equal(ssd, K.cost_volume_cross_plain(prev, cpad, bs, D, True))
+        assert torch.equal(ssd, K.cost_volume_plain(prev, cpad, bs, D, MSE))
 
 
 @pytest.mark.parametrize("bs,Hc,Wc,D", [

@@ -173,10 +173,12 @@ def test_rowoffset_shapes_raise(rng, pnorm, bs, Hc, Wc, D):
 
 @pytest.mark.parametrize("pnorm,bs,Hc,Wc,D", [
     (MAE, 12, 24, 36, 5), (MSE, 2, 8, 12, 5), (MAE, 3, 9, 12, 6), (MSE, 3, 9, 12, 6),
+    (MAE, 9, 18, 27, 5), (MAE, 13, 26, 26, 7), (MSE, 5, 10, 15, 6), (MSE, 7, 14, 21, 3),
 ])
 def test_cost_volume_rowoffset_matches_cost_volume_kernel(rng, pnorm, bs, Hc, Wc, D):
     """MAE at bs 12 (the BBME command line's default), bs 2 with D < 8 (the
-    exhaustive dense init), and bs 3, which does not divide 8."""
+    exhaustive dense init), bs 3, which does not divide 8, and the other
+    residues of bs mod 4 the packed kernel masks (bs 5, 7, 9, 13)."""
     prev, cpad = _volume_case(rng, bs, Hc, Wc, D)
     got = K.cost_volume_rowoffset(torch.from_numpy(prev)[None], torch.from_numpy(cpad)[None],
                                   bs, D, pnorm)
