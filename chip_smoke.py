@@ -37,7 +37,16 @@ path through the entry points a user calls:
   adaptive dispatch on a clip whose pairs partly escape its fast radii,
   each against a plain loop of `gme_pipeline_batch`; the command line
   (`python -m gme_tpu_torch.cli results`, then `stats`) over the bench's
-  207-frame 240p pan; and the volume-engine diamond at block size 20.
+  207-frame 240p pan; and the volume-engine diamond at block size 20;
+- direct (gradient-descent) GME at 720p: known affine and perspective
+  motions recovered at the defaults, the warps equal to the CPU's bit for
+  bit, `cli direct` in its own process;
+- meshes on the card, every slot naming it: data parallel on a 24-pair
+  720p batch, the spatial step (space 2 and 4; three-step and exhaustive at
+  space 4) on one pair, each counted and equal to the 1x1 step with as many
+  launches of each kernel, and `process_video` at data=2,space=2; then two
+  processes of the command line on a gloo process group, their merged
+  records equal to the single-process run's.
 
 Each 720p path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of that path launched and no rank
@@ -98,12 +107,31 @@ CLI_FRAMES, CLI_HW, CLI_BATCH = 207, (240, 320), 32
 BS20_BATCH, BS20_RADIUS = 8, 32  # the volume diamond at bs 20: get_motion_field's radius
 # The step counts at which the chases are held to each other.
 CHASE_ITERS = (1, 3, 4096)
+# Profiling windows `device_ms` takes before it holds an empty one a failure.
+PROFILE_ATTEMPTS = 3
 # Cells of a volume-chase call that `counted()` keeps for `[paths]`: a volume
 # at radius 64 holds 66.6 KB a cell.
 CAPTURE_CELLS = 4096
 # The volume chase's bytes: the distinct 32-byte sectors its walks read.
 SECTOR_BYTES = 32
 STREAMS = ("frames", "compensated", "curr_prev_diff", "curr_comp_diff", "model_motion_field")
+# Direct GME at 720p: a smooth frame of 32-px cells, and known motions with
+# tests/test_direct.py's tolerances (parameter slice, abs tolerance).
+DIRECT_HW, DIRECT_CELL = (720, 1280), 32
+DIRECT_MOTIONS = (
+    ("affine", [6.0, 0.004, -0.003, -4.5, 0.003, 0.005], ((slice(0, 6), 0.1),)),
+    ("perspective", [6.0, -4.5, 1.004, 0.003, -0.002, 0.996, 1e-5, -6e-6],
+     ((slice(0, 6), 0.1), (slice(6, 8), 2e-4))),
+)
+# The kernels each spatial run must launch: the dense init (bs 2) and the
+# levels (bs 16) of diamond, three-step (its exact radius, D 11 and 37) and
+# exhaustive (D 6 on the row-offset kernel, D 20).
+MESH_KERNELS = {
+    "diamond": ("cost_volume_small_block", "cost_volume_mse_block", "chase_volume"),
+    "three-step": ("cost_volume_small_block", "cost_volume_mse_block"),
+    "exhaustive": ("cost_volume_rowoffset", "cost_volume_mse_block"),
+}
+MULTIHOST_GOP = 4
 
 # Published H100 SXM peaks (NVIDIA's data sheet; 700 W): HBM3 bytes/s and the
 # dense int8 tensor-core rate; the int32 rate outside the tensor cores is
@@ -216,16 +244,23 @@ def device_ms(torch, fn, reps):
     calls after one warm-up call, the sum of the durations of the device
     activity (kernels, fills, copies) that torch.profiler records in the
     window divided by `reps`, and the names of that activity.  No host
-    time between launches enters it."""
+    time between launches enters it.  Now and then a profiling window
+    comes back with no device activity at all; such a window is profiled
+    again, up to PROFILE_ATTEMPTS times, and each retry is logged."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            break
+        print(f"[profiler] window {attempt} of {PROFILE_ATTEMPTS} recorded no device activity",
+              file=sys.stderr, flush=True)
     check(spans, "the profiler recorded no device activity")
     return sum(us for _, us in spans) / 1e3 / reps, sorted({n for n, _ in spans})
 
@@ -687,7 +722,7 @@ def driver_phase(torch, K, card, launch_log, captured, work, dev):
     clip240 = os.path.join(work, "pan240s.y4m")
     write_y4m(clip240, list(pan))
     out240 = os.path.join(work, "cli")
-    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = cli_env()
     cli = [sys.executable, "-m", "gme_tpu_torch.cli"]
     platform = "gpu" if dev.type == "cuda" else "cpu"
     t0 = time.perf_counter()
@@ -737,6 +772,215 @@ def driver_phase(torch, K, card, launch_log, captured, work, dev):
           f"{BS20_BATCH / wall:.1f} pairs/s ({card}); inner cells on the pan {found:.3f}; "
           f"volume_edge_hits {diag['volume_edge_hits'].tolist()}; 360x640 crop == CPU; "
           f"launches {launch_log['diamond bs20']}")
+
+
+def smooth_frame(H, W, seed=0, cell=DIRECT_CELL, passes=3):
+    """tests/test_direct.py's smooth frame at `cell`-pixel blocks: a blocky
+    random field blurred by repeated (cell+1)-tap box filters (gradient
+    descent needs image gradients on the scale of the motion)."""
+    rng = np.random.RandomState(seed)
+    img = np.kron(rng.rand(-(-H // cell), -(-W // cell)), np.ones((cell, cell)))[:H, :W]
+    k = np.ones(cell + 1) / (cell + 1)
+    for _ in range(passes):
+        img = np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 0, img)
+        img = np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 1, img)
+    img = 255 * (img - img.min()) / (np.ptp(img) + 1e-9)
+    return img.astype(np.uint8)
+
+
+def cli_env():
+    """The environment of a command-line subprocess: this checkout first on
+    the import path."""
+    return dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def direct_phase(torch, card, dev, work):
+    """Direct (gradient-descent) GME at 720p: known affine and perspective
+    motions recovered within tests/test_direct.py's tolerances at the
+    defaults, the warps on the card equal to the CPU's bit for bit, and
+    `cli direct` in its own process."""
+    from gme_tpu_torch.io.video import write_y4m
+    from gme_tpu_torch.models import direct
+
+    H, W = DIRECT_HW
+    img = smooth_frame(H, W)
+    prev_cpu = torch.from_numpy(img)
+    prev = prev_cpu.to(dev)
+    for model, true, atol in DIRECT_MOTIONS:
+        true = torch.tensor(true)
+        curr = direct.warp_backward(prev, true.to(dev), model)
+        check(torch.equal(curr.cpu(), direct.warp_backward(prev_cpu, true, model)),
+              f"direct {model}: warp_backward on the card differs from the CPU")
+        est, wall, walls = timed(torch, lambda: direct.direct_global_motion_estimation(
+            prev, curr, model), reps=1)
+        err = (est.cpu() - true).abs()
+        ok = [bool((err[sl] <= tol).all()) for sl, tol in atol]
+        check(all(ok), f"direct {model}: estimate {est.cpu().tolist()} misses {true.tolist()} "
+              f"(abs err {err.tolist()})")
+        phase("direct", f"{model} 720p: recovered {true.tolist()} with abs err max "
+              f"{float(err.max()):.3g} (tolerances {[t for _, t in atol]}); "
+              f"{direct.DEFAULT_ITERATIONS} x 3 levels in {wall * 1e3:.1f} ms ({card})")
+    # The warps on the card against the CPU: sample points out of the frame,
+    # huge and NaN parameters.
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(100000).astype(np.float32) * (H + 200) - 100)
+    y = torch.from_numpy(rng.rand(100000).astype(np.float32) * (W + 200) - 100)
+    x[:3] = torch.tensor([float("nan"), 1e30, float(H - 1)])
+    got = direct.bilinear_sample(prev, x.to(dev), y.to(dev)).cpu()
+    want = direct.bilinear_sample(prev_cpu, x, y)
+    check(torch.equal(got.nan_to_num(), want.nan_to_num())
+          and torch.equal(got.isnan(), want.isnan()), "bilinear_sample: card differs from the CPU")
+    n_forward = 0
+    for model, true, _ in DIRECT_MOTIONS:
+        p = torch.tensor(true)
+        for q in (p, p * 1e9, torch.full_like(p, float("nan")), torch.zeros_like(p)):
+            check(torch.equal(direct.warp_forward(prev, q.to(dev), model).cpu(),
+                              direct.warp_forward(prev_cpu, q, model)),
+                  f"warp_forward {model} {q.tolist()}: card differs from the CPU")
+            n_forward += 1
+    phase("direct", f"card == CPU bit for bit: bilinear_sample at 100000 points (out of frame, "
+          f"NaN, 1e30), warp_backward under both motions, warp_forward x {n_forward} "
+          "(huge, NaN, collapsing parameters)")
+
+    # The command line on a y4m pair, in its own process.
+    model, true, atol = DIRECT_MOTIONS[0]
+    curr = direct.warp_backward(prev_cpu, torch.tensor(true), model)
+    clip = os.path.join(work, "direct720.y4m")
+    write_y4m(clip, [img, torch.round(curr).clamp(0, 255).to(torch.uint8).numpy()])
+    out = os.path.join(work, "direct_out")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "gme_tpu_torch.cli", "direct", "-v", clip,
+                          "-fi", "1", "--model", model, "-o", out, "--platform",
+                          "gpu" if dev.type == "cuda" else "cpu"],
+                         cwd=HERE, env=cli_env(), capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"cli direct failed ({res.returncode}): {res.stderr[-2000:]}")
+    printed = json.loads(res.stdout)
+    check(sorted(printed) == ["model", "parameters", "psnr_after", "psnr_before"]
+          and printed["psnr_after"] > printed["psnr_before"] + 6
+          and os.path.exists(os.path.join(out, "direct_1.png")),
+          f"cli direct: {printed}, files {os.listdir(out) if os.path.isdir(out) else None}")
+    err = np.abs(np.array(printed["parameters"]) - np.array(true)).max()
+    phase("direct", f"cli direct 720p {model}: psnr {printed['psnr_before']:.4f} -> "
+          f"{printed['psnr_after']:.4f} dB, parameters abs err max {err:.3g}, direct_1.png "
+          f"written; command {cli_s:.1f} s ({card})")
+
+
+def mesh_phase(torch, K, card, launch_log, captured, dev, work):
+    """Meshes on one card, the slots all naming it: data parallel and the
+    spatial step (space 2 and 4; three-step and exhaustive at space 4) at
+    720p against the 1x1 step, each spatial run counted, and the driver
+    with a 2x2 mesh against the 1x1 driver.  On one card a mesh runs its
+    slots one after another: the times are the band program's cost."""
+    import gme_tpu_torch
+    from gme_tpu_torch.config import GMEConfig, MeshConfig, PipelineConfig
+    from gme_tpu_torch.io.video import write_y4m
+    from gme_tpu_torch.parallel.data_parallel import make_sharded_pipeline
+    from gme_tpu_torch.parallel.mesh import make_mesh
+    from gme_tpu_torch.parallel.spatial import make_spatial_pipeline
+    from gme_tpu_torch.pipeline.results import process_video
+
+    H, W = DRIVER_HW
+    frames = synthetic_pan(BATCH_720P + 1, H, W, PAN_STEP)
+    prev = torch.from_numpy(frames[:-1]).to(dev)
+    curr = torch.from_numpy(frames[1:]).to(dev)
+
+    def same(got, want, what, exact=False):
+        for k in want:
+            if k == "psnr" and not exact:
+                d = float((got[k] - want[k]).abs().max())
+                check(d <= 1e-4, f"{what}: psnr differs by {d} dB")
+            else:
+                check(torch.equal(got[k], want[k]), f"{what}: {k} differs from the 1x1 step")
+
+    cfg = GMEConfig(search_impl="volume")
+    one = gme_tpu_torch.gme_pipeline_batch(prev, curr, cfg)
+    dp = make_sharded_pipeline(make_mesh(2, 1, [dev] * 2), cfg)
+    same(dp(prev, curr), one, "data parallel 2x1", exact=True)
+    phase("mesh", f"data parallel data=2 on {[str(dev)] * 2}, B={BATCH_720P} 720p == the 1x1 "
+          "step bit for bit (every output, PSNR included)")
+    del one
+
+    runs = [(2, cfg, "diamond"), (4, cfg, "diamond"),
+            (4, cfg.replace(searching_procedure=1), "three-step"),
+            (4, cfg.replace(searching_procedure=0), "exhaustive")]
+    p1, c1 = prev[:1], curr[:1]
+    for space, scfg, name in runs:
+        path = f"mesh spatial s{space} {name}"
+        single = f"mesh 1x1 {name}"
+        step = make_spatial_pipeline(make_mesh(1, space, [dev] * space), scfg, H, W)
+        kernels = MESH_KERNELS[name]
+        got = counted(torch, K, path, lambda: step(p1, c1), kernels, launch_log, captured)
+        want = counted(torch, K, single, lambda: gme_tpu_torch.gme_pipeline_batch(p1, c1, scfg),
+                       kernels, launch_log, captured)
+        same(got, want, path, exact=True)
+        banded = {k: v for k, v in launch_log[path].items() if k != "warp_block_field"}
+        flat = {k: v for k, v in launch_log[single].items() if k != "warp_block_field"}
+        check(banded == flat, f"{path}: launches {banded} != the 1x1 step's {flat}")
+        _, ms, _ = timed(torch, lambda: step(p1, c1))
+        _, ms1, _ = timed(torch, lambda: gme_tpu_torch.gme_pipeline_batch(p1, c1, scfg))
+        phase("mesh", f"spatial {name} space={space} on one card, 1 pair 720p == the 1x1 step "
+              f"(every output bit for bit, PSNR included); launches {launch_log[path]} == the "
+              f"1x1 step's but warp_block_field (a plain gather there); step {ms * 1e3:.1f} ms "
+              f"against {ms1 * 1e3:.1f} ms for the 1x1 step ({card}; one card runs the bands in "
+              "turn: the band program's cost, no speed-up)")
+    del prev, curr
+
+    clip = os.path.join(work, "mesh720.y4m")
+    write_y4m(clip, list(frames))
+    pcfg = PipelineConfig(gme=cfg, batch_size=BATCH_720P, write_images=False)
+    flat = process_video(clip, os.path.join(work, "flat"), pcfg, device=dev)
+    meshed = process_video(clip, os.path.join(work, "meshed"),
+                           pcfg.replace(mesh=MeshConfig(data=2, space=2)), device=dev,
+                           devices=[dev] * 4)
+    got, want = (read_records(os.path.join(work, d), "mesh720") for d in ("meshed", "flat"))
+    check(len(got) == BATCH_720P and sorted(got) == sorted(want)
+          and max(abs(got[k] - want[k]) for k in want) <= 1e-4
+          and meshed["volume_edge_hits"] == flat["volume_edge_hits"],
+          f"process_video 2x2: records differ from the 1x1 run ({len(got)} records)")
+    phase("mesh", f"process_video mesh data=2,space=2 on {[str(dev)] * 4}: {len(got)} 720p "
+          f"records == the 1x1 run (max diff {max(abs(got[k] - want[k]) for k in want)} dB); "
+          f"wall {meshed['wall_s']:.3f} s against {flat['wall_s']:.3f} s ({card})")
+    return clip, want
+
+
+def multihost_phase(torch, card, dev, work, clip, want):
+    """Two processes of the command line on the card, on a gloo process
+    group at a free local port: GOP shards, the completion barrier, rank
+    0's merge, equal to the single-process records."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(work, "multi")
+    cmd = [sys.executable, "-m", "gme_tpu_torch.cli", "results", "-v", clip, "-o", out,
+           "--batch-size", "8", "--no-images", "--search-impl", "volume", "--gop-size",
+           str(MULTIHOST_GOP), "--num-processes", "2", "--coordinator", f"127.0.0.1:{port}",
+           "--platform", "gpu" if dev.type == "cuda" else "cpu"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(r)], cwd=HERE, env=cli_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"multihost rank {r} failed ({p.returncode}): {e[-2000:]}")
+    done = [json.loads(o)["pairs_processed"] for o, _ in outs]
+    got = read_records(out, "mesh720")
+    check(sorted(got) == sorted(want) and got == want,
+          f"multihost: merged records differ from the single-process run ({len(got)} records)")
+    phase("multihost", f"2 processes (gloo at 127.0.0.1:{port}, GOPs of {MULTIHOST_GOP}) on the "
+          f"card: {done} pairs, rank 0 merged {len(got)} records == the single-process run "
+          f"exactly; {wall:.1f} s for both commands ({card})")
 
 
 def start_probe_build(K):
@@ -1277,7 +1521,19 @@ def run(torch):
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # Phase 11: each kernel against its plain version at every shape the
+    # Phases 11-13: direct GME, meshes on the card, two processes.
+    work = tempfile.mkdtemp(prefix="smoke_mesh_", dir=out_dir)
+    try:
+        direct_phase(torch, card, dev, work)
+        torch.cuda.empty_cache()
+        clip, want = mesh_phase(torch, K, card, launch_log, captured, dev, work)
+        torch.cuda.empty_cache()
+        multihost_phase(torch, card, dev, work, clip, want)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # Phase 14: each kernel against its plain version at every shape the
     # counted paths gave it, on the paths' own inputs; the cross kernel in
     # both modes.
     for key in sorted(captured, key=str):

@@ -5,13 +5,17 @@ defaults (`gme_tpu/cli.py`):
   (reference results.py:114-138)
 - `python -m gme_tpu_torch.cli bbme -p <video> -fi <idx> [-pn 0] [-bs 12]
   [-sw 8] [-sp 1]` (reference bbme.py:653-714)
+- `python -m gme_tpu_torch.cli direct -v <video> -fi <idx> [-f 1]
+  [--model perspective|affine]` (direct gradient-descent GME of one pair)
 - `python -m gme_tpu_torch.cli stats [results_dir]`
   (reference utils.some_data __main__ walker, utils.py:169-188)
 
 `--platform` is `gpu` (the default: CUDA, raising without it) or `cpu`;
-nothing falls back from one to the other.  `direct` is registered with the
-JAX flags but not ported yet (ROADMAP A11); more than one process or a mesh
-other than data=1,space=1 raise (ROADMAP A12).
+nothing falls back from one to the other.  `results --mesh data=D,space=S`
+runs over D*S slots: the visible cards on the card, the CPU in every slot
+on the CPU.  `--num-processes N --process-id K --coordinator host:port`
+runs process K's GOP shard and joins a gloo process group for the final
+barrier; rank 0 merges the records.
 """
 
 from __future__ import annotations
@@ -44,11 +48,6 @@ def _cmd_results(args) -> None:
     from gme_tpu_torch.config import GMEConfig, PipelineConfig
     from gme_tpu_torch.pipeline.results import process_video
 
-    if args.num_processes > 1:
-        raise NotImplementedError(
-            f"--num-processes {args.num_processes}: multi-process runs are not "
-            "ported yet (ROADMAP A12)"
-        )
     gme = GMEConfig(
         block_size=args.block_size,
         pyramid_levels=args.levels,
@@ -68,10 +67,20 @@ def _cmd_results(args) -> None:
         write_images=not args.no_images,
         adaptive=args.adaptive,
     )
-    summary = process_video(
-        args.path, out_root=args.out, cfg=cfg, profile_dir=args.profile_dir,
-        max_pairs=args.max_pairs, device=_PLATFORMS[args.platform],
-    )
+    if args.num_processes > 1:
+        from gme_tpu_torch.parallel.multihost import process_video_multihost
+
+        summary = process_video_multihost(
+            args.path, out_root=args.out, cfg=cfg,
+            num_processes=args.num_processes, process_id=args.process_id,
+            coordinator_address=args.coordinator, gop_size=args.gop_size,
+            max_pairs=args.max_pairs, device=_PLATFORMS[args.platform],
+        )
+    else:
+        summary = process_video(
+            args.path, out_root=args.out, cfg=cfg, profile_dir=args.profile_dir,
+            max_pairs=args.max_pairs, device=_PLATFORMS[args.platform],
+        )
     print(json.dumps(summary, indent=2))
 
 
@@ -119,9 +128,36 @@ def _cmd_bbme(args) -> None:
 
 
 def _cmd_direct(args) -> None:
-    raise NotImplementedError(
-        "direct (gradient-descent) GME is not ported yet (ROADMAP A11)"
+    """Direct (gradient-descent) GME between two frames; prints the model,
+    its parameters and the PSNR before and after compensation, and with -o
+    writes the compensated frame as direct_<fi>.png."""
+    import torch
+
+    from gme_tpu_torch.io.video import get_video_frames
+    from gme_tpu_torch.models.direct import direct_motion_compensation
+    from gme_tpu_torch.ops.metrics import psnr
+    from gme_tpu_torch.pipeline.results import resolve_device
+
+    dev = resolve_device(_PLATFORMS[args.platform])
+    frames = get_video_frames(args.path)
+    previous = torch.from_numpy(np.ascontiguousarray(frames[args.fi - args.fd])).to(dev)
+    current = torch.from_numpy(np.ascontiguousarray(frames[args.fi])).to(dev)
+    params, comp = direct_motion_compensation(
+        previous, current, model=args.model, levels=args.levels,
+        iterations=args.iterations, learning_rate=args.lr,
     )
+    out = {
+        "model": args.model,
+        "parameters": [float(p) for p in params.cpu()],
+        "psnr_before": float(psnr(current[None], previous[None])[0]),
+        "psnr_after": float(psnr(current[None], comp[None])[0]),
+    }
+    if args.out:
+        from gme_tpu_torch.io.writers import write_png
+
+        os.makedirs(args.out, exist_ok=True)
+        write_png(os.path.join(args.out, f"direct_{args.fi}.png"), comp.cpu().numpy())
+    print(json.dumps(out, indent=2))
 
 
 def _cmd_stats(args) -> None:
@@ -172,14 +208,16 @@ def main(argv=None) -> None:
                         "radii first, recompute escaped pairs at full "
                         "radius (equal results; wins when motion stays small)")
     p.add_argument("--mesh", default="data=1,space=1",
-                   help="device mesh; only data=1,space=1 runs (ROADMAP A12)")
+                   help='device mesh, e.g. "data=2,space=4": pairs shard '
+                        'over data, frame rows over space (halo exchange)')
     p.add_argument("--max-pairs", type=int, default=None)
     p.add_argument("--platform", choices=tuple(_PLATFORMS), default="gpu",
                    help="gpu (CUDA, the default) or cpu")
-    p.add_argument("--num-processes", type=int, default=1,
-                   help="only 1 runs (ROADMAP A12)")
+    # multi-process: GOPs shard across processes (gme_tpu_torch.parallel.multihost)
+    p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
-    p.add_argument("--coordinator", default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of the gloo process group (rank 0 serves it)")
     p.add_argument("--gop-size", type=int, default=16)
     p.set_defaults(func=_cmd_results)
 
@@ -197,8 +235,7 @@ def main(argv=None) -> None:
                    help="gpu (CUDA, the default) or cpu")
     p.set_defaults(func=_cmd_bbme)
 
-    p = sub.add_parser("direct", help="direct (gradient-descent) GME on one pair "
-                                      "(not ported yet, ROADMAP A11)")
+    p = sub.add_parser("direct", help="direct (gradient-descent) GME on one pair")
     p.add_argument("-v", "--video-path", dest="path", required=True)
     p.add_argument("-fi", "--frame-index", dest="fi", type=int, required=True)
     p.add_argument("-f", "--frame-distance", dest="fd", type=int, default=1)
@@ -209,7 +246,8 @@ def main(argv=None) -> None:
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("-o", "--out", default=None,
                    help="write the compensated frame PNG here")
-    p.add_argument("--platform", choices=tuple(_PLATFORMS), default="gpu")
+    p.add_argument("--platform", choices=tuple(_PLATFORMS), default="gpu",
+                   help="gpu (CUDA, the default) or cpu")
     p.set_defaults(func=_cmd_direct)
 
     p = sub.add_parser("stats", help="aggregate PSNR stats over results")

@@ -120,8 +120,7 @@ class GMEConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh layout, field-for-field the JAX package's: pairs over
-    `data`, frame rows over `space`.  The port runs 1x1 only; larger meshes
-    wait for ROADMAP A12."""
+    `data`, frame rows over `space` (`gme_tpu_torch/parallel/`)."""
 
     data_axis: str = "data"
     space_axis: str = "space"

@@ -130,17 +130,21 @@ def moments_fit_ok(
 
 
 def int_moments(
-    motion_field: torch.Tensor, inlier_mask: torch.Tensor, coord_stride: int = 4
+    motion_field: torch.Tensor, inlier_mask: torch.Tensor, coord_stride: int = 4,
+    row0=0,
 ) -> torch.Tensor:
     """(B, 12) exact integer moment sums of the normal equations over inlier
     cells: [n, Σx, Σy, Σxx, Σxy, Σyy, Σd0, Σx·d0, Σy·d0, Σd1, Σx·d1, Σy·d1]
-    with x = i·stride, y = j·stride (reference motion.py:57-58).  Summed in
-    int64; `moments_fit_ok` bounds every sum below 2**31, so the values are
-    the JAX package's int32 sums."""
+    with x = (row0 + i)·stride, y = j·stride (reference motion.py:57-58);
+    `row0`, an int or a (B,) tensor, is the global block row of a row band's
+    first row.  Summed in int64, so the sums of the bands of a frame add up
+    to the frame's; `moments_fit_ok` bounds every sum below 2**31, so the
+    values are the JAX package's int32 sums."""
     _, nbh, nbw = inlier_mask.shape
     m = inlier_mask.to(torch.int64)
     x, y = _cell_coords(nbh, nbw, torch.int64, m.device)
-    x, y = x * coord_stride, y * coord_stride
+    row0 = torch.as_tensor(row0, dtype=torch.int64, device=m.device).reshape(-1, 1, 1)
+    x, y = (x + row0) * coord_stride, y * coord_stride
     d0 = motion_field[..., 0].to(torch.int64) * m
     d1 = motion_field[..., 1].to(torch.int64) * m
     mx = m * x

@@ -32,8 +32,9 @@ clamp rule of the block size (`_packed_rule`).
 Motion-field convention (reference bbme.py:531-532): (B, H//bs, W//bs, 2)
 int32, channel 0 the column shift, channel 1 the row shift.
 
-Not ported yet: the row-band volume `compute_cost_volume_band` (ROADMAP
-A12).
+The row-band volume `compute_cost_volume_band` and the `count_mask` of
+`diamond_walk_volume` serve the spatially-sharded step
+(`gme_tpu_torch/parallel/spatial.py`).
 """
 
 from __future__ import annotations
@@ -189,6 +190,36 @@ def compute_cost_volume(
     # In place: the volume is the largest tensor of the step (62.7 MB per
     # 720p pair at the dense init).
     return cost.masked_fill_(~mask.reshape(nbh, nbw, D * D), _INF)
+
+
+def compute_cost_volume_band(
+    prev_band: torch.Tensor, curr_band_ext: torch.Tensor, gb0, frame_shape: Tuple[int, int],
+    block_size: int, radius: int, pnorm: int,
+) -> torch.Tensor:
+    """(B, T, nbw, D*D) masked DFD volume of a row band of block rows (JAX
+    bbme.py:229-277), through the volume kernels like `compute_cost_volume`.
+
+    prev_band: (B, T*bs, nbw*bs) uint8, the previous-frame rows
+    [gb0*bs, (gb0+T)*bs), zero past the frame's bottom; curr_band_ext:
+    (B, T*bs + 2R, nbw*bs + 2R) uint8, the current-frame rows
+    [gb0*bs - R, (gb0+T)*bs + R), zero beyond the frame, columns padded by
+    R; gb0: the global block row of the band's first row, an int or a (B,)
+    tensor (bands stacked into the pair dimension); frame_shape: the global
+    (H, W).  +inf where the candidate block leaves the global frame; entry
+    k = (dr + R) * D + (dc + R)."""
+    H, W = frame_shape
+    bs, R = block_size, radius
+    T, nbw = prev_band.shape[1] // bs, prev_band.shape[2] // bs
+    D = 2 * R + 1
+    cost = _dfd_cost_volume(prev_band, curr_band_ext, bs, D, pnorm)
+    dev = prev_band.device
+    offsets = torch.arange(-R, R + 1, dtype=torch.int32, device=dev)
+    gb0 = torch.as_tensor(gb0, dtype=torch.int32, device=dev).reshape(-1, 1)
+    row = ((gb0 + torch.arange(T, dtype=torch.int32, device=dev)) * bs)[..., None] + offsets
+    valid_r = (row >= 0) & (row <= H - bs)  # (B or 1, T, D)
+    valid_c = _offset_mask(nbw, bs, W, offsets)  # (nbw, D)
+    mask = valid_r[:, :, None, :, None] & valid_c[None, None, :, None, :]
+    return cost.masked_fill_(~mask.reshape(-1, T, nbw, D * D), _INF)
 
 
 # ---------------------------------------------------------------------------
@@ -628,6 +659,7 @@ def _succ_map(volume, origins, H: int, W: int, block_size: int, radius: int) -> 
 def diamond_walk_volume(
     volume: torch.Tensor, origins: torch.Tensor, H: int, W: int,
     block_size: int, radius: int, max_iters: int = 4096,
+    count_mask: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Volume-engine diamond walk: the fixpoint chase, one SDSP pass (JAX
     bbme.py:963-1106).  The chase reads the volume itself and gives what the
@@ -636,7 +668,8 @@ def diamond_walk_volume(
     (B, nbh, nbw, 2) best absolute positions and the (B,) int32 count of
     walks that visited the volume's boundary-adjacent ring (max |offset| >=
     R - 1), the certificate that a larger radius could not change the result
-    when zero."""
+    when zero.  With a (B, nbh, nbw) bool `count_mask` only its cells count
+    (a row band's padding rows do not)."""
     bs, R = block_size, radius
     D = 2 * R + 1
     lead = volume.shape[:-1]
@@ -650,6 +683,9 @@ def diamond_walk_volume(
         volume.reshape(-1, D * D).contiguous(), bounds, D, R, max_iters, _packed_rule(bs)
     )
     o = o.reshape(lead)
+    touched = touched.reshape(lead)
+    if count_mask is not None:
+        touched = touched & count_mask
     edge_hits = touched.reshape(B, -1).sum(dim=1, dtype=torch.int32)
     match = torch.stack([og[..., 0] + o // D - R, og[..., 1] + o % D - R], dim=-1)
 

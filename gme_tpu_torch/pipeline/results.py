@@ -26,8 +26,10 @@ batch's step; at most two batches are in flight, and an error in the
 writer re-raises in `process_video`.
 
 The device is explicit: `device="cuda"` (the default) raises without CUDA;
-the CPU runs only when `device="cpu"` is passed.  Only the 1x1 mesh runs
-(multi-device runs are ROADMAP A12).
+the CPU runs only when `device="cpu"` is passed.  A mesh other than 1x1
+(`cfg.mesh`) runs over the slots `devices`: by default the visible cards
+on CUDA, every slot the CPU on the CPU; a list may name one device more
+than once (a mesh on one card), and a mesh larger than its slots raises.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from gme_tpu_torch.io.draw import draw_motion_field
 from gme_tpu_torch.io.video import FramePrefetcher
 from gme_tpu_torch.io.writers import PSNRRecords, write_png
 from gme_tpu_torch.models.gme import gme_pipeline_batch, gme_pipeline_batch_adaptive
+from gme_tpu_torch.parallel.mesh import Mesh, default_devices, make_mesh
 from gme_tpu_torch.utils.profiling import StageTimer, maybe_profile
 
 _STREAMS = (
@@ -86,31 +89,52 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _build_step(cfg: PipelineConfig):
+def _run_mesh(cfg: PipelineConfig, dev: torch.device, devices=None) -> Optional[Mesh]:
+    """The mesh of `cfg.mesh` over the slots `devices` (default: the visible
+    cards on CUDA, the CPU in every slot on the CPU), or None for 1x1.
+    Raises for adaptive with a mesh (the JAX driver ignores the flag there),
+    a batch the data axis does not divide, and too few slots."""
+    m = cfg.mesh
+    if m.data * m.space == 1:
+        return None
+    if cfg.adaptive:
+        raise ValueError(f"adaptive=True runs on the 1x1 mesh only, not {m.data}x{m.space}")
+    if cfg.batch_size % m.data:
+        raise ValueError(f"batch_size={cfg.batch_size} must divide by mesh data={m.data}")
+    if devices is None:
+        devices = default_devices() if dev.type == "cuda" else [dev] * (m.data * m.space)
+    return make_mesh(data=m.data, space=m.space, devices=devices)
+
+
+def _build_step(cfg: PipelineConfig, mesh: Optional[Mesh], H: int, W: int):
     """The batched per-pair step, returning only the outputs the driver
     copies to the host (with `write_images=False`: parameters, PSNR and
-    the edge hits).  Raises for a mesh other than 1x1."""
-    m = cfg.mesh
-    if m.data * m.space != 1:
-        if cfg.adaptive:
-            raise ValueError(
-                f"adaptive=True runs on the 1x1 mesh only, not {m.data}x{m.space}"
-            )
-        raise NotImplementedError(
-            f"mesh {m.data}x{m.space}: multi-device runs are not ported yet "
-            "(ROADMAP A12)"
-        )
+    the edge hits).  Without a mesh: `gme_pipeline_batch` (or the adaptive
+    dispatch); a Dx1 mesh: data parallel; a DxS mesh: pairs over data and
+    frame rows over space (`parallel/spatial.py`, which checks H x W)."""
     keys = (
         _TRANSFER_KEYS
         if cfg.write_images
         else ("parameters", "psnr", "volume_edge_hits")
     )
-    # The adaptive dispatch reads its escape certificate on the host once
-    # per batch (models.gme.gme_pipeline_batch_adaptive).
-    batch_fn = gme_pipeline_batch_adaptive if cfg.adaptive else gme_pipeline_batch
+    if mesh is None:
+        # The adaptive dispatch reads its escape certificate on the host
+        # once per batch (models.gme.gme_pipeline_batch_adaptive).
+        batch_fn = gme_pipeline_batch_adaptive if cfg.adaptive else gme_pipeline_batch
+
+        def base(prev, curr):
+            return batch_fn(prev, curr, cfg.gme)
+    elif cfg.mesh.space == 1:
+        from gme_tpu_torch.parallel.data_parallel import make_sharded_pipeline
+
+        base = make_sharded_pipeline(mesh, cfg.gme)
+    else:
+        from gme_tpu_torch.parallel.spatial import make_spatial_pipeline
+
+        base = make_spatial_pipeline(mesh, cfg.gme, H, W)
 
     def step(prev: torch.Tensor, curr: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = batch_fn(prev, curr, cfg.gme)
+        out = base(prev, curr)
         return {k: out[k] for k in keys}
 
     return step
@@ -124,10 +148,12 @@ def _get_writer(workers: int = 2):
     return AsyncPNGWriter(workers) if available() else None
 
 
-def _start_copy(out: Dict[str, torch.Tensor], dev: torch.device):
+def _start_copy(out: Dict[str, torch.Tensor]):
     """Start copying a batch's outputs to the host: pinned host tensors
     filled by non-blocking copies, and the CUDA event recorded after them
-    (None on the CPU, where the outputs already are on the host)."""
+    on the outputs' device (None on the CPU, where the outputs already are
+    on the host)."""
+    dev = next(iter(out.values())).device
     if dev.type != "cuda":
         return out, None
     host = {}
@@ -148,6 +174,7 @@ def process_video(
     shard: Optional[Tuple[int, int]] = None,
     gop_size: int = 16,
     device="cuda",
+    devices=None,
 ) -> Dict:
     """Run the full pipeline over one video on `device`; returns the
     summary dict (also written to summary.json).
@@ -155,10 +182,12 @@ def process_video(
     `shard=(shard_id, num_shards)` selects this process's GOPs: pairs group
     into GOPs of `gop_size`, and GOP g belongs to shard g % num_shards; the
     shard writes psnr_records.rank<k>.json and summary.rank<k>.json.
+    `devices` are the slots of `cfg.mesh` (module docstring); the batches
+    go to `device` and the step's outputs come back on the first slot.
     """
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
-    step = _build_step(cfg)
+    mesh = _run_mesh(cfg, dev, devices)
     fd = cfg.frame_distance
     bsz = cfg.batch_size
     timers = StageTimer()
@@ -179,6 +208,7 @@ def process_video(
         if first is None:
             raise RuntimeError(f"Error reading video file: {video_path}")
         H, W = int(first.shape[0]), int(first.shape[1])
+        step = _build_step(cfg, mesh, H, W)
 
         shard_id, num_shards = shard if shard is not None else (0, 1)
         rec_name = (
@@ -221,7 +251,7 @@ def process_video(
             with timers.stage("dispatch"):
                 prev = torch.from_numpy(np.stack([pf.frame(i - fd) for i in idx_arr]))
                 curr = torch.from_numpy(np.stack([pf.frame(i) for i in idx_arr]))
-                return _start_copy(step(prev.to(dev), curr.to(dev)), dev)
+                return _start_copy(step(prev.to(dev), curr.to(dev)))
 
         edge_hits_total = 0
         pending = None  # (batch indices, the writer's future)

@@ -510,3 +510,139 @@ def test_driver_equals_cpu(cuda, tmp_path):
         for name in names:
             assert ((tmp_path / "gpu" / "alt" / stream / name).read_bytes()
                     == (tmp_path / "cpu" / "alt" / stream / name).read_bytes()), (stream, name)
+
+
+# ---------------------------------------------------------------------------
+# Row bands and meshes on one card (the `devices` list names it per slot)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pnorm", [MAE, MSE])
+@pytest.mark.parametrize("bs,R,T,nbw", [(2, 16, 23, 40), (16, 32, 3, 5), (16, 12, 2, 4),
+                                        (12, 25, 2, 3), (4, 6, 5, 7)])
+def test_cost_volume_band_equals_cpu(cuda, pnorm, bs, R, T, nbw):
+    """The band volume of stacked bands (a per-row gb0, rows past the frame)
+    through the volume kernels equals the CPU's."""
+    rng = np.random.RandomState(bs + R)
+    B = 6
+    prev = _u8(rng, B, T * bs, nbw * bs)
+    curr = _u8(rng, B, T * bs + 2 * R, nbw * bs + 2 * R)
+    gb0 = torch.tensor([0, T - 1, 2 * T, 0, T, 3 * T], dtype=torch.int32)
+    H, W = 3 * T * bs + bs // 2, nbw * bs + 3
+    want = bbme.compute_cost_volume_band(prev, curr, gb0, (H, W), bs, R, pnorm)
+    got = bbme.compute_cost_volume_band(prev.to(cuda), curr.to(cuda), gb0.to(cuda), (H, W), bs,
+                                        R, pnorm)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("H,W,space,sp", [(96, 84, 4, DIAMOND), (128, 80, 2, DIAMOND),
+                                          (96, 84, 4, 0), (96, 84, 4, 1)])
+def test_spatial_step_on_one_card_equals_cpu(cuda, H, W, space, sp):
+    """The spatial step with its bands on one card: the stacked volume
+    kernels and chase give the 1x1 step's outputs, and the CPU's."""
+    from gme_tpu_torch.parallel.mesh import make_mesh
+    from gme_tpu_torch.parallel.spatial import make_spatial_pipeline
+
+    rng = np.random.RandomState(H + space)
+    prev = rng.randint(0, 256, (2, H, W)).astype(np.uint8)
+    curr = np.stack([np.roll(p, (2, -1), (0, 1)) for p in prev])
+    cfg = GMEConfig(search_impl="volume", searching_procedure=sp)
+    step = make_spatial_pipeline(make_mesh(2, space, [cuda] * (2 * space)), cfg, H, W)
+    K.reset_launch_counts()
+    got = step(torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda))
+    banded = dict(K.LAUNCHES)
+    K.reset_launch_counts()
+    one = gme_pipeline_batch(torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda), cfg)
+    # Two data shards, each one launch of each kernel a level.
+    assert banded == {k: 2 * v for k, v in K.LAUNCHES.items() if k != "warp_block_field"} | {
+        "warp_block_field": 0}, (banded, K.LAUNCHES)
+    cpu = make_spatial_pipeline(make_mesh(2, space, ["cpu"] * (2 * space)), cfg, H, W)(
+        torch.from_numpy(prev), torch.from_numpy(curr))
+    for k in one:
+        assert torch.equal(got[k].cpu(), one[k].cpu()), k
+        if k == "psnr":  # log10 on the card and on the CPU may differ by an ulp
+            torch.testing.assert_close(got[k].cpu(), cpu[k], rtol=0, atol=1e-4)
+        else:
+            assert torch.equal(got[k].cpu(), cpu[k]), k
+
+
+def test_data_parallel_on_one_card_equals_the_batch(cuda):
+    from gme_tpu_torch.parallel.data_parallel import make_sharded_pipeline
+    from gme_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.RandomState(5)
+    prev = rng.randint(0, 256, (4, 64, 80)).astype(np.uint8)
+    curr = np.stack([np.roll(p, (1, 3), (0, 1)) for p in prev])
+    p, c = torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda)
+    got = make_sharded_pipeline(make_mesh(2, 1, [cuda] * 2), GMEConfig())(p, c)
+    want = gme_pipeline_batch(p, c, GMEConfig())
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_direct_warps_equal_cpu(cuda):
+    """bilinear_sample, warp_backward and warp_forward on the card equal
+    the CPU's bit for bit (huge and NaN parameters too), and a short
+    optimisation stays close."""
+    from gme_tpu_torch.models import direct
+
+    rng = np.random.RandomState(6)
+    img = torch.from_numpy(rng.randint(0, 256, (60, 84)).astype(np.uint8))
+    x = torch.from_numpy(rng.rand(700).astype(np.float32) * 100 - 20)
+    y = torch.from_numpy(rng.rand(700).astype(np.float32) * 120 - 20)
+    x[:4] = torch.tensor([float("nan"), 1e30, -float("inf"), 59.0])
+    want = direct.bilinear_sample(img, x, y)
+    got = direct.bilinear_sample(img.to(cuda), x.to(cuda), y.to(cuda)).cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    for model, p in (("affine", [1.5, 0.01, -0.02, -2.25, 0.015, 0.01]),
+                     ("perspective", [1.5, -2.25, 1.01, 0.02, -0.015, 0.99, 1e-4, -5e-5])):
+        p = torch.tensor(p)
+        assert torch.equal(direct.warp_backward(img.to(cuda), p.to(cuda), model).cpu(),
+                           direct.warp_backward(img, p, model))
+        for q in (p, torch.zeros_like(p), p * 1e9, torch.full_like(p, float("nan"))):
+            assert torch.equal(direct.warp_forward(img.to(cuda), q.to(cuda), model).cpu(),
+                               direct.warp_forward(img, q, model))
+        curr = direct.warp_backward(img, p, model)
+        a, _ = direct.optimize_level(direct.identity_params(model), img, curr, model, 20)
+        b, _ = direct.optimize_level(direct.identity_params(model, cuda), img.to(cuda),
+                                     curr.to(cuda), model, 20)
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)
+
+
+def test_mesh_across_cards_equals_one_card(cuda, tmp_path):
+    """Meshes over distinct cards (rows and partial sums move between
+    devices): data parallel, the spatial step and the driver's default
+    slots (the visible cards) equal the 1x1 step on the first card."""
+    from gme_tpu_torch.config import MeshConfig
+    from gme_tpu_torch.parallel.data_parallel import make_sharded_pipeline
+    from gme_tpu_torch.parallel.mesh import make_mesh
+    from gme_tpu_torch.parallel.spatial import make_spatial_pipeline
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    rng = np.random.RandomState(8)
+    H, W = 96 * n // 2, 84
+    prev = rng.randint(0, 256, (n, H, W)).astype(np.uint8)
+    curr = np.stack([np.roll(p, (2, -1), (0, 1)) for p in prev])
+    p, c = torch.from_numpy(prev).to(cards[0]), torch.from_numpy(curr).to(cards[0])
+    cfg = GMEConfig(search_impl="volume")
+    want = gme_pipeline_batch(p, c, cfg)
+    runs = {
+        "data": make_sharded_pipeline(make_mesh(n, 1, cards), cfg),
+        "space": make_spatial_pipeline(make_mesh(1, n, cards), cfg, H, W),
+        "both": make_spatial_pipeline(make_mesh(2, n // 2, cards), cfg, H, W),
+    }
+    for name, step in runs.items():
+        got = step(p, c)
+        for k in want:
+            assert got[k].device == cards[0] and torch.equal(got[k], want[k]), (name, k)
+    clip = str(tmp_path / "clip.y4m")
+    write_y4m(clip, [prev[0]] + [np.roll(prev[0], (i, -i), (0, 1)) for i in range(1, 5)])
+    pcfg = PipelineConfig(gme=cfg, batch_size=2, write_images=False)
+    recs = []
+    for name, mesh in (("one", MeshConfig()), ("mesh", MeshConfig(data=2, space=n // 2))):
+        process_video(clip, str(tmp_path / name), pcfg.replace(mesh=mesh), device="cuda")
+        recs.append(json.load(open(tmp_path / name / "clip" / "psnr_records.json")))
+    assert recs[0] == recs[1] and len(recs[0]) == 4

@@ -259,15 +259,19 @@ def test_pipeline_batch_adaptive_equals_jax(pairs, escapes):
 
 
 def test_driver_refuses(tmp_path, rng, monkeypatch):
-    """Meshes wait for ROADMAP A12; adaptive with a mesh is an error (the
-    JAX driver ignores it); no CUDA means no run on device="cuda"."""
+    """What the driver still refuses, before it writes a file: adaptive with
+    a mesh (the JAX driver ignores the flag there), a mesh larger than its
+    device slots (never folded silently), a batch the data axis does not
+    divide, and device="cuda" without CUDA."""
     clip = _make_clip(tmp_path, rng)
     out = str(tmp_path / "r")
     mesh = PipelineConfig(mesh=MeshConfig(data=2))
-    with pytest.raises(NotImplementedError, match="A12"):
-        R.process_video(clip, out, mesh, device="cpu")
     with pytest.raises(ValueError, match="adaptive"):
         R.process_video(clip, out, mesh.replace(adaptive=True), device="cpu")
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        R.process_video(clip, out, mesh, device="cpu", devices=["cpu"])
+    with pytest.raises(ValueError, match="must divide by mesh data=2"):
+        R.process_video(clip, out, mesh.replace(batch_size=3), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         R.process_video(clip, out)
@@ -303,18 +307,26 @@ def test_cli_results_bbme_stats_equal_jax(tmp_path, rng, capsys):
 
 
 def test_cli_refuses(tmp_path, rng, monkeypatch):
+    """What the command line still refuses: adaptive with a mesh, an
+    unknown mesh axis, `--platform tpu`, a mesh larger than the visible
+    cards, and every command on the card without CUDA."""
     clip = _make_clip(tmp_path, rng)
     out = str(tmp_path / "r")
-    with pytest.raises(NotImplementedError, match="A11"):
-        torch_cli(["direct", "-v", clip, "-fi", "1"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        torch_cli(["results", "-v", clip, "-o", out, "--num-processes", "2", "--platform", "cpu"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        torch_cli(["results", "-v", clip, "-o", out, "--mesh", "data=2,space=1", "--platform", "cpu"])
+    with pytest.raises(ValueError, match="adaptive"):
+        torch_cli(["results", "-v", clip, "-o", out, "--mesh", "data=2", "--adaptive",
+                   "--platform", "cpu"])
+    with pytest.raises(SystemExit, match="unknown mesh axis"):
+        torch_cli(["results", "-v", clip, "-o", out, "--mesh", "pipe=2", "--platform", "cpu"])
     with pytest.raises(SystemExit):
         torch_cli(["results", "-v", clip, "-o", out, "--platform", "tpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        torch_cli(["results", "-v", clip, "-o", out, "--mesh", "data=1,space=2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in (["results", "-v", clip, "-o", out], ["bbme", "-p", clip, "-fi", "4", "-o", out]):
+    for argv in (["results", "-v", clip, "-o", out], ["bbme", "-p", clip, "-fi", "4", "-o", out],
+                 ["direct", "-v", clip, "-fi", "1"],
+                 ["results", "-v", clip, "-o", out, "--num-processes", "2"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             torch_cli(argv)
 

@@ -44,7 +44,9 @@ def test_import_loads_no_jax():
         "gme_tpu_torch.models.hierarchical_bbme, gme_tpu_torch.pipeline.results, "
         "gme_tpu_torch.cli, gme_tpu_torch.io.video, gme_tpu_torch.io.writers, "
         "gme_tpu_torch.io.draw, gme_tpu_torch.native.loader, "
-        "gme_tpu_torch.utils.profiling\n"
+        "gme_tpu_torch.utils.profiling, gme_tpu_torch.models.direct, "
+        "gme_tpu_torch.parallel.mesh, gme_tpu_torch.parallel.data_parallel, "
+        "gme_tpu_torch.parallel.spatial, gme_tpu_torch.parallel.multihost\n"
         "assert gme_tpu_torch.native.loader._TRIED is False  # nothing built at import\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gme_tpu'))\n"
         "assert not bad, bad\n"
