@@ -6,7 +6,9 @@
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit.  For each 720p path of `chip_smoke.py` (the searches at
 the BBME command line's defaults, the GME step under `-sp 0/1/2` and a
-volume radius of 64 on 8 pairs, the default step on 24 pairs) it prints:
+volume radius of 64 on 8 pairs, the default step on 24 pairs), run eagerly
+(`get_motion_field`, `gme_pipeline_batch_eager`) and compiled into CUDA
+graphs (`get_motion_field_jit`, `gme_pipeline_batch`), it prints:
 
 - the host time of one call (median of `--reps` synchronised calls after two
   warm-up calls, no profiler attached);
@@ -15,7 +17,9 @@ volume radius of 64 on 8 pairs, the default step on 24 pairs) it prints:
   records, not the CPU-side operator rows, which hold their kernels' time a
   second time;
 - the idle share, 1 - busy / host time, and the largest device items;
-- the peak device memory of that call.
+- the peak device memory of that call, and the memory the allocator holds
+  then (a compiled path's graph pools are reserved, not allocated, between
+  replays).
 
 Then it reads the latency-bound kernels at the default step's 720p shapes
 (the rank-map chase `chase_fixpoint`, the volume chase `chase_volume` where
@@ -45,8 +49,8 @@ import time
 import numpy as np
 
 from chip_smoke import (BATCH_720P, BATCH_SEARCH, BS20_BATCH, BS20_RADIUS, CLI_BS, CLI_SW,
-                        GME_OPTIONS, PAN_STEP, SEARCH_NAMES, bound, cuda_ms, device_ms, host_us,
-                        synthetic_pan)
+                        GME_OPTIONS, PAN_STEP, SEARCH_NAMES, bound, busy_intervals, cuda_ms,
+                        device_ms, host_us, synthetic_pan)
 
 # The row-offset kernel's three-step instantiation: 3 words a block row, MAE.
 THREE_STEP_SASS = "cost_volume_rowoffset_kernelILi3ELi0E"
@@ -58,23 +62,6 @@ def smi(*fields):
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def busy_intervals(torch, prof):
-    """(busy us, {name: us}) of the device activity in a profile."""
-    spans, by_name = [], {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = evt.time_range.start, evt.time_range.end
-        spans.append((start, end))
-        by_name[evt.name] = by_name.get(evt.name, 0.0) + (end - start)
-    busy, reach = 0.0, -np.inf
-    for start, end in sorted(spans):
-        if end > reach:
-            busy += end - max(start, reach)
-            reach = end
-    return busy, by_name
 
 
 def profile_path(torch, fn, reps):
@@ -93,6 +80,7 @@ def profile_path(torch, fn, reps):
         fn()
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
     busy_us, by_name = busy_intervals(torch, prof)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device activity")
@@ -100,7 +88,7 @@ def profile_path(torch, fn, reps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "walls_ms": [w * 1e3 for w in walls],
             "device_busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e3 / wall_ms,
-            "peak_gib": peak / 2**30, "top_ms": [[name[:60], us / 1e3] for name, us in top]}
+            "peak_gib": peak / 2**30, "reserved_gib": reserved / 2**30, "top_ms": [[name[:60], us / 1e3] for name, us in top]}
 
 
 def clocked(torch, fn, seconds=2.0):
@@ -209,16 +197,22 @@ def main():
     sp_prev, sp_curr = prev[:BATCH_SEARCH], curr[:BATCH_SEARCH]
     cfg = GMEConfig()
 
+    # Each path eager (op by op) and compiled (CUDA graph replays), in turns.
     paths = {}
     for sp in range(4):
         kw = dict(block_size=CLI_BS, search_window=CLI_SW, searching_procedure=sp,
                   pnorm_distance=MAE)
-        paths[f"search {SEARCH_NAMES[sp]}"] = (
-            lambda kw=kw: bbme.get_motion_field(sp_prev, sp_curr, **kw))
+        for kind, fn in (("eager", bbme.get_motion_field), ("compiled", bbme.get_motion_field_jit)):
+            paths[f"search {SEARCH_NAMES[sp]} {kind}"] = (
+                lambda kw=kw, fn=fn: fn(sp_prev, sp_curr, **kw))
+    steps = (("eager", gme_tpu_torch.gme_pipeline_batch_eager),
+             ("compiled", gme_tpu_torch.gme_pipeline_batch))
     for opt, (kw, _) in GME_OPTIONS.items():
-        paths[f"gme {opt}"] = (lambda ocfg=cfg.replace(**kw):
-                               gme_tpu_torch.gme_pipeline_batch(sp_prev, sp_curr, ocfg))
-    paths["gme default"] = lambda: gme_tpu_torch.gme_pipeline_batch(prev, curr, cfg)
+        for kind, fn in steps:
+            paths[f"gme {opt} {kind}"] = (lambda ocfg=cfg.replace(**kw), fn=fn:
+                                          fn(sp_prev, sp_curr, ocfg))
+    for kind, fn in steps:
+        paths[f"gme default {kind}"] = lambda fn=fn: fn(prev, curr, cfg)
 
     result = {"card": card, "paths": {}, "kernels": {}}
     for path, fn in paths.items():
@@ -226,7 +220,8 @@ def main():
         result["paths"][path] = r
         top = ", ".join(f"{n} {ms:.2f}" for n, ms in r["top_ms"])
         print(f"[path] {path}: host {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
-              f"idle {r['idle_share']:.3f}, peak {r['peak_gib']:.2f} GiB ({card}); largest: {top}",
+              f"idle {r['idle_share']:.3f}, peak {r['peak_gib']:.2f} GiB, reserved "
+              f"{r['reserved_gib']:.2f} GiB ({card}); largest: {top}",
               flush=True)
         torch.cuda.empty_cache()
 

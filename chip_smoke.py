@@ -32,10 +32,19 @@ path through the entry points a user calls:
   the port's own CPU run;
 - the default per-pair step on the pan240 golden pairs (against the goldens
   and the CPU run) and on a 24-pair 720p pan;
-- the results driver (`process_video`, the port's main entry point) over a
-  97-frame 720p y4m pan with images and without, resumed, and with the
-  adaptive dispatch on a clip whose pairs partly escape its fast radii,
-  each against a plain loop of `gme_pipeline_batch`; the command line
+- `[compiled]`: the compiled entries, captured CUDA graphs (the default
+  720p step at B 24, `-sp 0/1/2` and radius 64 at B 8, the adaptive batch,
+  `get_motion_field_jit` under each procedure, direct GME's level loop,
+  the f32 fit), each against its eager body over two calls on different
+  frames: bit-equal, the first call's outputs unchanged by the second, as
+  many launches of each kernel a replay as the eager call, no rank map;
+  eager and compiled host ms, busy ms and idle share (torch.profiler),
+  graphs and host reads a call, peak memory, to chiprun_out/compiled.json;
+- the results driver (`process_video`, the port's main entry point, on the
+  compiled step) over a 97-frame 720p y4m pan with images and without,
+  resumed, and with the adaptive dispatch on a clip whose pairs partly
+  escape its fast radii, each against a plain loop of the eager
+  `gme_pipeline_batch_eager`; the command line
   (`python -m gme_tpu_torch.cli results`, then `stats`) over the bench's
   207-frame 240p pan; and the volume-engine diamond at block size 20;
 - direct (gradient-descent) GME at 720p: known affine and perspective
@@ -49,8 +58,9 @@ path through the entry points a user calls:
   records equal to the single-process run's.
 
 Each 720p path runs with the launch counts set to 0 just before it and read
-just after, and fails unless every kernel of that path launched and no rank
-map was built.  Meanwhile each kernel's arguments are kept at every shape
+just after (the wrappers' counts and the CUDA graph replays', which call no
+wrapper: `utils.compiled.REPLAY_LAUNCHES`), and fails unless every kernel
+of that path launched and no rank map was built.  Meanwhile each kernel's arguments are kept at every shape
 the path gives it (for the volume chase, a fixed subset of the cells), and
 at the end each kernel is held against its plain version on them.  It prints one
 line per phase.  The last lines are a JSON record of the kernels, the
@@ -59,6 +69,7 @@ card's name and power limit from nvidia-smi, and `{"ok": true, "device":
 device it fails at once.  It imports neither `jax` nor `gme_tpu`.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -109,6 +120,8 @@ BS20_BATCH, BS20_RADIUS = 8, 32  # the volume diamond at bs 20: get_motion_field
 CHASE_ITERS = (1, 3, 4096)
 # Profiling windows `device_ms` takes before it holds an empty one a failure.
 PROFILE_ATTEMPTS = 3
+# Synchronised calls whose median host time `[compiled]` reports.
+COMPILED_REPS = 5
 # Cells of a volume-chase call that `counted()` keeps for `[paths]`: a volume
 # at radius 64 holds 66.6 KB a cell.
 CAPTURE_CELLS = 4096
@@ -463,7 +476,10 @@ def capturing(torch, name, wrapper, captured):
     def call(*args, **kw):
         key = ((name,) + tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args)
                + tuple(sorted(kw.items())))
-        if key not in captured:
+        # A compiled function's eager warm-up calls each wrapper at the
+        # shapes of its capture, where no copy to the host is allowed.
+        if key not in captured and not (torch.cuda.is_available()
+                                        and torch.cuda.is_current_stream_capturing()):
             keep = cell_subset(args) if name == "chase_volume" else args
             captured[key] = ([a.cpu() if isinstance(a, torch.Tensor) else a for a in keep], kw)
         return wrapper(*args, **kw)
@@ -473,16 +489,28 @@ def capturing(torch, name, wrapper, captured):
 RANK_MAP_BUILDERS = ("_succ_map_packed", "_succ_map_select")
 
 
-def counted(torch, K, path, fn, kernels, launch_log, captured):
-    """Run `fn` with every launch count set to 0 just before and read just
-    after; fail unless each kernel of `kernels` launched, and if a rank map
-    was built (`rank_map_builds`: the volume chase walks the volume itself).
-    Every kernel wrapper called meanwhile leaves its arguments in `captured`
-    at each new shape, so that each shape the path gives a kernel can later
-    be held against the plain version."""
+def launched(K):
+    """Launches of each kernel since the counts were last set to 0: the
+    wrappers' own (eager calls, a compiled function's warm-up) and those of
+    the CUDA graph replays, which call no wrapper."""
+    from gme_tpu_torch.utils import compiled
+
+    return {k: K.LAUNCHES[k] + compiled.REPLAY_LAUNCHES[k] for k in K.LAUNCHES}
+
+
+def reset_counts(K):
+    from gme_tpu_torch.utils import compiled
+
+    K.reset_launch_counts()
+    compiled.reset_replay_counts()
+
+
+@contextlib.contextmanager
+def counting_rank_maps():
+    """Count the rank maps built meanwhile (`bbme._succ_map_packed` and
+    `_select`); yields a one-element list holding the count."""
     from gme_tpu_torch.ops import bbme
 
-    originals = {k: getattr(K, k) for k in K.LAUNCHES}
     builders = {b: getattr(bbme, b) for b in RANK_MAP_BUILDERS}
     builds = [0]
 
@@ -492,21 +520,36 @@ def counted(torch, K, path, fn, kernels, launch_log, captured):
             return builder(*args, **kw)
         return call
 
-    for k, wrapper in originals.items():
-        setattr(K, k, capturing(torch, k, wrapper, captured))
     for b, builder in builders.items():
         setattr(bbme, b, building(builder))
     try:
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
+        yield builds
+    finally:
+        for b, builder in builders.items():
+            setattr(bbme, b, builder)
+
+
+def counted(torch, K, path, fn, kernels, launch_log, captured):
+    """Run `fn` with every launch count set to 0 just before and read just
+    after (`launched`: the wrappers' launches and the graph replays'); fail
+    unless each kernel of `kernels` launched, and if a rank map was built
+    (`rank_map_builds`: the volume chase walks the volume itself).  Every
+    kernel wrapper called meanwhile leaves its arguments in `captured` at
+    each new shape, so that each shape the path gives a kernel can later be
+    held against the plain version."""
+    originals = {k: getattr(K, k) for k in K.LAUNCHES}
+    for k, wrapper in originals.items():
+        setattr(K, k, capturing(torch, k, wrapper, captured))
+    try:
+        with counting_rank_maps() as builds:
+            torch.cuda.synchronize()
+            reset_counts(K)
+            out = fn()
+            torch.cuda.synchronize()
     finally:
         for k, wrapper in originals.items():
             setattr(K, k, wrapper)
-        for b, builder in builders.items():
-            setattr(bbme, b, builder)
-    launches = dict(K.LAUNCHES, rank_map_builds=builds[0])
+    launches = dict(launched(K), rank_map_builds=builds[0])
     launch_log[path] = launches
     missing = [k for k in kernels if launches[k] == 0]
     check(not missing, f"{path}: kernels of the path did not launch: {missing} ({launches})")
@@ -582,8 +625,10 @@ def write_breakdown(torch, gme_tpu_torch, frames, dev, work, n=8):
 def step_loop(torch, gme_tpu_torch, frames, batch, dev, cfg):
     """The plain loop the driver replaces: consecutive pairs in batches of
     `batch`, the last padded by repeating its last pair, each uploaded,
-    stepped and its transfer keys copied back.  Returns {idx: psnr}, the
-    real pairs' edge hits (one count per pair) and the wall time."""
+    stepped by the eager body (`gme_pipeline_batch_eager`; the driver runs
+    the compiled step) and its transfer keys copied back.  Returns
+    {idx: psnr}, the real pairs' edge hits (one count per pair) and the
+    wall time."""
     idx = list(range(1, len(frames)))
     records, hits = {}, []
     torch.cuda.synchronize()
@@ -591,7 +636,7 @@ def step_loop(torch, gme_tpu_torch, frames, batch, dev, cfg):
     for s in range(0, len(idx), batch):
         b = idx[s:s + batch]
         padded = b + [b[-1]] * (batch - len(b))
-        out = gme_tpu_torch.gme_pipeline_batch(
+        out = gme_tpu_torch.gme_pipeline_batch_eager(
             torch.from_numpy(frames[[i - 1 for i in padded]]).to(dev),
             torch.from_numpy(frames[padded]).to(dev), cfg)
         host = {k: out[k].cpu() for k in ("parameters", "model_motion_field", "compensated",
@@ -911,7 +956,8 @@ def mesh_phase(torch, K, card, launch_log, captured, dev, work):
         step = make_spatial_pipeline(make_mesh(1, space, [dev] * space), scfg, H, W)
         kernels = MESH_KERNELS[name]
         got = counted(torch, K, path, lambda: step(p1, c1), kernels, launch_log, captured)
-        want = counted(torch, K, single, lambda: gme_tpu_torch.gme_pipeline_batch(p1, c1, scfg),
+        want = counted(torch, K, single,
+                       lambda: gme_tpu_torch.gme_pipeline_batch_eager(p1, c1, scfg),
                        kernels, launch_log, captured)
         same(got, want, path, exact=True)
         banded = {k: v for k, v in launch_log[path].items() if k != "warp_block_field"}
@@ -981,6 +1027,233 @@ def multihost_phase(torch, card, dev, work, clip, want):
     phase("multihost", f"2 processes (gloo at 127.0.0.1:{port}, GOPs of {MULTIHOST_GOP}) on the "
           f"card: {done} pairs, rank 0 merged {len(got)} records == the single-process run "
           f"exactly; {wall:.1f} s for both commands ({card})")
+
+
+def busy_intervals(torch, prof):
+    """(busy us, {name: us}) of the device activity in a profile: the union
+    of its intervals, and each name's total."""
+    spans, by_name = [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + (end - start)
+    busy, reach = 0.0, -np.inf
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy, by_name
+
+
+def host_and_busy(torch, fn, reps=COMPILED_REPS):
+    """(median host ms of `reps` synchronised calls, device busy ms of one
+    profiled call or None where the profiler recorded no device activity in
+    PROFILE_ATTEMPTS windows)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    busy = None
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us, _ = busy_intervals(torch, prof)
+        if us > 0:
+            busy = us / 1e3
+            break
+        print(f"[profiler] window {attempt} of {PROFILE_ATTEMPTS} recorded no device activity",
+              file=sys.stderr, flush=True)
+    return float(np.median(walls)) * 1e3, busy
+
+
+def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=None):
+    """A compiled entry against its eager body on the card, over `calls`
+    (argument tuples on different frames): bit-equal outputs at every call,
+    the first call's outputs unchanged by the later ones, as many launches
+    of each kernel in a replay as in the eager call, every kernel of
+    `kernels` among them and no rank map built.  Then eager and compiled
+    host ms, busy ms and idle share, the graphs and host reads of a call,
+    and the peak memory with the graphs alive.  `chain` gives the entries a
+    call of a dispatch over several compiled functions used, and its own
+    host reads (default: `fn.last_entry`, none)."""
+    from gme_tpu_torch.utils import compiled as CP
+
+    kept = []
+    with counting_rank_maps() as builds:
+        for args in calls:
+            reset_counts(K)
+            want = eager(*args)
+            torch.cuda.synchronize()
+            eager_launches = launched(K)
+            fn(*args)  # the first call of a key captures
+            torch.cuda.synchronize()
+            reset_counts(K)
+            got = fn(*args)
+            torch.cuda.synchronize()
+            replayed = launched(K)
+            check(replayed == eager_launches and not any(K.LAUNCHES.values()),
+                  f"[compiled] {name}: a call launched {replayed} (eager launches "
+                  f"{dict(K.LAUNCHES)}), the eager body {eager_launches}")
+            flat_w, _ = CP._flatten(want)
+            flat_g, _ = CP._flatten(got)
+            check(len(flat_w) == len(flat_g) and all(
+                w.dtype == g.dtype and w.shape == g.shape and torch.equal(w, g)
+                for w, g in zip(flat_w, flat_g)),
+                f"[compiled] {name}: the compiled outputs differ from the eager body's")
+            kept.append(([t.clone() for t in flat_g], flat_g))
+    check(builds[0] == 0, f"[compiled] {name}: a rank map was built")
+    check(all(torch.equal(a, b) for c, r in kept for a, b in zip(c, r)),
+          f"[compiled] {name}: a later call changed an earlier call's outputs")
+    missing = [k for k in kernels if eager_launches[k] == 0]
+    check(not missing, f"[compiled] {name}: kernels of the path did not launch: {missing}")
+    entries, own_reads = chain() if chain else ([fn.last_entry], 0)
+    args = calls[-1]
+    eager_ms, eager_busy = host_and_busy(torch, lambda: eager(*args))
+    torch.cuda.reset_peak_memory_stats()
+    comp_ms, comp_busy = host_and_busy(torch, lambda: fn(*args))
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+
+    def idle(ms, busy):
+        return None if busy is None else 1 - busy / ms
+
+    row = {"eager_host_ms": eager_ms, "eager_busy_ms": eager_busy,
+           "eager_idle": idle(eager_ms, eager_busy), "compiled_host_ms": comp_ms,
+           "compiled_busy_ms": comp_busy, "compiled_idle": idle(comp_ms, comp_busy),
+           "graphs": sum(len(e.graphs) for e in entries),
+           "host_reads": own_reads + sum(e.host_reads for e in entries),
+           "launches": {k: v for k, v in replayed.items() if v},
+           "peak_gib": peak / 2**30, "reserved_gib": reserved / 2**30}
+    rows[name] = row
+
+    def ms(v):
+        return "not measured (no device activity recorded)" if v is None else f"{v:.3f}"
+
+    phase("compiled", f"{name}: {len(calls)} calls == the eager body bit for bit, the first "
+          f"unchanged by the second; launches a replay {row['launches']} == eager; no rank map; "
+          f"{row['graphs']} graph(s), {row['host_reads']} host read(s) a call; host ms eager "
+          f"{eager_ms:.3f} compiled {comp_ms:.3f}; busy ms eager {ms(eager_busy)} compiled "
+          f"{ms(comp_busy)}; idle eager {ms(row['eager_idle'])} compiled "
+          f"{ms(row['compiled_idle'])}; peak {row['peak_gib']:.2f} GiB allocated, "
+          f"{row['reserved_gib']:.2f} GiB reserved with the graphs alive ({card})")
+
+
+def compiled_phase(torch, K, card, dev):
+    """The compiled entries (CUDA graphs) on the card, each against its
+    eager body over two calls on different frames (`compiled_case`): the
+    default 720p step at B 24, `-sp 0/1/2` and radius 64 at B 8, the
+    adaptive batch of still and panned pairs, `get_motion_field_jit` under
+    each procedure at the BBME command line's defaults at B 8, and direct
+    GME's compiled level loop on the `[direct]` pair.  The rows go to
+    chiprun_out/compiled.json."""
+    import gme_tpu_torch
+    from gme_tpu_torch.config import MAE, GMEConfig
+    from gme_tpu_torch.models import direct
+    from gme_tpu_torch.models import gme as tgme
+    from gme_tpu_torch.ops import bbme
+
+    cfg = GMEConfig()
+    H, W = DRIVER_HW
+    rows = {}
+
+    def pans(batch, seed):
+        frames = synthetic_pan(batch + 1, H, W, PAN_STEP, seed=seed)
+        return torch.from_numpy(frames[:-1]).to(dev), torch.from_numpy(frames[1:]).to(dev)
+
+    pairs = [pans(BATCH_720P, seed) for seed in (0, 1)]
+    step, eager = gme_tpu_torch.gme_pipeline_batch, gme_tpu_torch.gme_pipeline_batch_eager
+    compiled_case(torch, K, card, f"gme default B={BATCH_720P}", step, eager,
+                  [(p, c, cfg) for p, c in pairs], DEFAULT_KERNELS, rows)
+    small = [(p[:BATCH_SEARCH], c[:BATCH_SEARCH]) for p, c in pairs]
+    del pairs
+    for opt, (kw, kernels) in GME_OPTIONS.items():
+        compiled_case(torch, K, card, f"gme {opt} B={BATCH_SEARCH}", step, eager,
+                      [(p, c, cfg.replace(**kw)) for p, c in small], kernels, rows)
+        torch.cuda.empty_cache()
+    for sp in range(4):
+        kernels = ("cost_volume_rowoffset",) + (("chase_volume",) if sp == 3 else ())
+        compiled_case(torch, K, card, f"search {SEARCH_NAMES[sp]} B={BATCH_SEARCH}",
+                      bbme.get_motion_field_jit, bbme.get_motion_field,
+                      [(p, c, CLI_BS, CLI_SW, sp, MAE) for p, c in small], kernels, rows)
+    del small
+    torch.cuda.empty_cache()
+
+    alts = []
+    for seed in (0, 1):
+        alt = held_still_or_panned(ADAPTIVE_FRAMES, H, W, ADAPTIVE_PAN, ADAPTIVE_BAR, seed=seed)
+        alts.append((torch.from_numpy(alt[:-1]).to(dev), torch.from_numpy(alt[1:]).to(dev)))
+    fast = tgme.gme_pipeline_batch_eager(*alts[0], cfg.fast())["volume_edge_hits"]
+    check(bool((fast > 0).any()) and bool((fast == 0).any()),
+          f"[compiled] adaptive: fast-tier hits {fast.tolist()} need escaping and still pairs")
+
+    def adaptive_eager(p, c, acfg):
+        """The adaptive dispatch on the eager bodies."""
+        fast_out = tgme.gme_pipeline_batch_eager(p, c, acfg.fast())
+        escaped = fast_out["volume_edge_hits"] > 0
+        if not bool(escaped.any()):
+            return fast_out
+        return tgme._merge_adaptive_eager(
+            fast_out, tgme.gme_pipeline_batch_eager(p, c, acfg), escaped)
+
+    def adaptive_chain():
+        """Both tiers' entries and the merge's; the certificate read."""
+        tiers = [step.entries[step.key(*alts[-1], c)] for c in (cfg.fast(), cfg)]
+        return tiers + [tgme._merge_adaptive.last_entry], 1
+
+    compiled_case(torch, K, card, f"gme adaptive B={BATCH_720P}",
+                  tgme.gme_pipeline_batch_adaptive, adaptive_eager,
+                  [(p, c, cfg) for p, c in alts], DEFAULT_KERNELS, rows, chain=adaptive_chain)
+    del alts
+    torch.cuda.empty_cache()
+
+    model, true, _ = DIRECT_MOTIONS[0]
+    sched = direct._schedule(direct.DEFAULT_LEARNING_RATE, direct.DEFAULT_ITERATIONS).to(dev)
+    level = []
+    for seed in (0, 1):
+        prev = torch.from_numpy(smooth_frame(H, W, seed=seed)).to(dev)
+        curr = direct.warp_backward(prev, torch.tensor(true, device=dev), model)
+        level.append((direct.identity_params(model, dev), prev.float(), curr, sched, model,
+                      float(max(H, W))))
+    compiled_case(torch, K, card, f"direct optimize_level {model} 720p x "
+                  f"{direct.DEFAULT_ITERATIONS} steps", direct._adam_level_jit,
+                  direct._adam_level, level, (), rows)
+    del level
+    torch.cuda.empty_cache()
+
+    # The f32 fit (1080p fields overflow the int32 moments) compiled: its
+    # batched solve captures; against the port's CPU run (ROADMAP C2).
+    from gme_tpu_torch.ops import affine
+    from gme_tpu_torch.utils.compiled import compiled
+
+    rng = np.random.RandomState(0)
+    fits = []
+    for _ in range(2):
+        field = torch.from_numpy(rng.randint(-20, 21, (BATCH_SEARCH, 67, 120, 2)).astype(np.int32))
+        mask = torch.from_numpy(rng.rand(BATCH_SEARCH, 67, 120) > 0.3)
+        fits.append((field.to(dev), mask.to(dev), (1080, 1920), 4))
+    fit = compiled(affine._fit_normal_equations_f32, static_argnames=("frame_shape", "coord_stride"))
+    compiled_case(torch, K, card, f"f32 fit B={BATCH_SEARCH} 1080p cells", fit,
+                  affine._fit_normal_equations_f32, fits, (), rows)
+    on_card = fit(*fits[-1]).cpu()
+    on_cpu = affine._fit_normal_equations_f32(fits[-1][0].cpu(), fits[-1][1].cpu(), (1080, 1920), 4)
+    rows["f32 fit card - cpu max abs"] = float((on_card - on_cpu).abs().max())
+    phase("compiled", f"f32 fit B={BATCH_SEARCH} on 67x120 cells: the card's parameters against "
+          f"the port's CPU run, max abs {rows['f32 fit card - cpu max abs']:.3g} (ROADMAP C2)")
+    del fits, fit
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "compiled.json"), "w") as f:
+        json.dump({"card": card, "rows": rows}, f, indent=1)
+    return rows
 
 
 def start_probe_build(K):
@@ -1509,6 +1782,10 @@ def run(torch):
     del warm, out, prev, curr
     torch.cuda.empty_cache()
 
+    # Phase 9b: the compiled entries (CUDA graphs) against their eager bodies.
+    compiled_phase(torch, K, card, dev)
+    torch.cuda.empty_cache()
+
     # Phase 10: the results driver and the command line over whole videos.
     # Its videos and outputs go to a directory of its own under chiprun_out/,
     # removed afterwards.
@@ -1543,12 +1820,20 @@ def run(torch):
         modes = ([{"ssd": False}, {"ssd": True}] if kernel == "cost_volume_cross" and args[2] <= 16
                  else [kw])
         for mode in modes:
-            err = agree(kernel, getattr(K, kernel)(*args, **mode), plain_of[kernel](*args, **mode))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain_of[kernel](*args, **mode)
+            end.record()
+            torch.cuda.synchronize()
+            err = agree(kernel, getattr(K, kernel)(*args, **mode), want)
+            del want
             ms = cuda_ms(torch, lambda: getattr(K, kernel)(*args, **mode), PLAIN_REPS)
             floor, _ = floor_of(kernel, args)
             bound_ms, bound_by, binds = bound(K, kernel, args, floor)
             phase("paths", f"{kernel} {key[1:]}{' ' + str(mode) if mode else ''}: bit-equal=True "
-                  f"max_abs_err={err} kernel {ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
+                  f"max_abs_err={err} kernel {ms:.4f} ms; plain {start.elapsed_time(end):.4f} ms "
+                  f"(one call, events); bound {bound_ms:.4f} ms by {bound_by}, "
                   f"{binds} binds, share {max(bound_ms, floor) / ms:.4f} ({card})")
         del args
     for k in K.LAUNCHES:

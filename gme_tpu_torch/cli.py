@@ -91,7 +91,7 @@ def _cmd_bbme(args) -> None:
     from gme_tpu_torch.io.video import get_video_frames
     from gme_tpu_torch.io.writers import write_png
     from gme_tpu_torch.models.hierarchical_bbme import hierarchical_wrapper
-    from gme_tpu_torch.ops.bbme import get_motion_field
+    from gme_tpu_torch.ops.bbme import get_motion_field_jit
     from gme_tpu_torch.pipeline.results import resolve_device
 
     dev = resolve_device(_PLATFORMS[args.platform])
@@ -101,7 +101,7 @@ def _cmd_bbme(args) -> None:
     prev_t = torch.from_numpy(np.ascontiguousarray(previous))[None].to(dev)
     curr_t = torch.from_numpy(np.ascontiguousarray(current))[None].to(dev)
 
-    motion_field = get_motion_field(
+    motion_field = get_motion_field_jit(
         prev_t, curr_t,
         block_size=args.block_size,
         search_window=args.search_window,

@@ -25,6 +25,22 @@ Everything runs in plain torch on the device of its inputs: in the JAX
 package it is plain XLA, with no Pallas kernel.  The functions take one
 (H, W) frame pair, as the JAX ones do.
 
+Rounding follows jitted JAX on an x86 CPU with FMA: XLA:CPU contracts
+`a*b + c` into fused multiply-adds in the motion models and in
+`bilinear_sample`'s weights, and `ops.affine._fma` rounds those terms once,
+where the object code has an FMA (read with `objdump -d` from the objects
+that `XLA_FLAGS=--xla_dump_to=...` leaves: three in `bilinear_sample`'s
+fusion, three a coordinate in `perspective_model`'s).  On the pixel grid
+(an iota in JAX, as in every caller here) XLA computes a product of the
+row coordinate alone once a row, outside the column loop, where it is not
+fused into the sum that uses it: `p4*x` of the affine y1 and `p6*x` of the
+perspective denominator.  The motion models follow that grid form, so
+`warp_backward` and the warped frame of `photometric_loss` are bit-equal to
+jitted JAX.  Which products XLA fuses depends on the fusion around them, so
+the motion models jitted alone can differ from these by an ulp.  The loss is a sum over the
+pixels, taken in another order than XLA's, so the loss, its gradient and
+the Adam steps agree to float32 rounding (ROADMAP queue C7).
+
 Differentiation follows XLA's: `jnp.clip` is a max and a min, and a tie
 at a bound gives each side half the gradient.  `torch.maximum` and
 `torch.minimum` split ties the same way (`torch.clamp` would pass all of
@@ -45,7 +61,9 @@ from typing import Tuple
 
 import torch
 
+from gme_tpu_torch.ops.affine import _fma
 from gme_tpu_torch.ops.pyramid import get_pyramids
+from gme_tpu_torch.utils.compiled import compiled
 
 N_MAX_ITERATIONS = 100  # the prototype's budget, reference gd tests/motion.py:6
 DEFAULT_ITERATIONS = 300  # per level
@@ -66,11 +84,13 @@ def perspective_model(params: torch.Tensor, x, y) -> Tuple[torch.Tensor, torch.T
     (gd tests/motion.py:51-63, without its int() truncation); the
     denominator is kept away from zero by a signed 1e-6."""
     p = params
-    den = p[6] * x + p[7] * y + 1.0
+    # XLA's contractions on the grid (module docstring): fma(p7, y, p6*x) + 1
+    # and fma(p3, y, fma(p2, x, p0)).
+    den = _fma(p[7], y, p[6] * x) + 1.0
     tiny = torch.where(den < 0, -1e-6, 1e-6)
     den = torch.where(den.abs() < 1e-6, tiny, den)
-    x1 = (p[0] + p[2] * x + p[3] * y) / den
-    y1 = (p[1] + p[4] * x + p[5] * y) / den
+    x1 = _fma(p[3], y, _fma(p[2], x, p[0])) / den
+    y1 = _fma(p[5], y, _fma(p[4], x, p[1])) / den
     return x1, y1
 
 
@@ -78,8 +98,10 @@ def affine_coords(params: torch.Tensor, x, y) -> Tuple[torch.Tensor, torch.Tenso
     """Mapped coordinates under the 6-parameter affine DISPLACEMENT model
     (reference motion.py:91-105): source = coord + displacement."""
     p = params
-    x1 = x + p[0] + p[1] * x + p[2] * y
-    y1 = y + p[3] + p[4] * x + p[5] * y
+    # XLA's contractions on the grid (module docstring): fma(p2, y, fma(p1,
+    # x, x + p0)), and fma(p5, y, (y + p3) + p4*x) with p4*x unfused.
+    x1 = _fma(p[2], y, _fma(p[1], x, x + p[0]))
+    y1 = _fma(p[5], y, (y + p[3]) + p[4] * x)
     return x1, y1
 
 
@@ -177,12 +199,12 @@ def bilinear_sample(img: torch.Tensor, x, y) -> torch.Tensor:
     def at(r, c):
         return flat[(r * W + c).long()]
 
-    return (
-        at(x0i, y0i) * (1 - fx) * (1 - fy)
-        + at(x0i, y1i) * (1 - fx) * fy
-        + at(x1i, y0i) * fx * (1 - fy)
-        + at(x1i, y1i) * fx * fy
-    )
+    gx, gy = 1 - fx, 1 - fy
+    # v00*gx*gy + v01*gx*fy + v10*fx*gy + v11*fx*fy as XLA contracts it:
+    # the last three sums are FMAs whose product is the term's last factor.
+    return _fma(at(x1i, y1i) * fx, fy,
+                _fma(at(x1i, y0i) * fx, gy,
+                     _fma(at(x0i, y0i) * gx, gy, at(x0i, y1i) * gx * fy)))
 
 
 def warp_backward(
@@ -259,6 +281,43 @@ def _schedule(learning_rate: float, iterations: int) -> torch.Tensor:
     return torch.stack([lr, 1 - b1 ** (t + 1), 1 - b2 ** (t + 1)], dim=1)
 
 
+def _adam_level(
+    params: torch.Tensor,
+    prev_f: torch.Tensor,
+    curr_f: torch.Tensor,
+    sched: torch.Tensor,
+    model: str,
+    coord_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Adam loop of `optimize_level`: one step per row of `sched`
+    (`_schedule`), each the loss, its gradient by autograd and optax's
+    update, the losses written into one preallocated tensor.  It reads
+    nothing back to the host, so on the card the whole loop is one CUDA
+    graph (`_adam_level_jit`)."""
+    p = params.detach().to(torch.float32).clone()
+    mu = torch.zeros_like(p)
+    nu = torch.zeros_like(p)
+    losses = torch.empty(sched.shape[0], dtype=torch.float32, device=p.device)
+    for t in range(sched.shape[0]):
+        with torch.enable_grad():
+            p.requires_grad_(True)
+            loss = photometric_loss(p, prev_f, curr_f, model, coord_scale)
+            (g,) = torch.autograd.grad(loss, p)
+        p = p.detach()
+        losses[t] = loss.detach()
+        lr, bc1, bc2 = sched[t]
+        mu = (1 - _B1) * g + _B1 * mu
+        nu = (1 - _B2) * (g * g) + _B2 * nu
+        update = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
+        p = p + (-lr) * update
+    return p, losses
+
+
+# The JAX package's jitted `optimize_level` (jit around a `lax.scan`): one
+# captured CUDA graph per (model, scale, shapes, device) on the card.
+_adam_level_jit = compiled(_adam_level, static_argnames=("model", "coord_scale"))
+
+
 def optimize_level(
     params: torch.Tensor,
     previous: torch.Tensor,
@@ -273,31 +332,14 @@ def optimize_level(
 
     Adam is optax's: b1 0.9, b2 0.999, eps 1e-8 outside the square root,
     bias correction from t = 1.  The step's scalars go to the device once
-    (`_schedule`), so the loop never waits for the host.  Returns (params,
-    losses), `losses[t]` the loss before update t, as the JAX `lax.scan`
-    returns them."""
+    (`_schedule`), and the loop is compiled (`_adam_level_jit`): on the card
+    one CUDA graph replay a level.  Returns (params, losses), `losses[t]`
+    the loss before update t, as the JAX `lax.scan` returns them."""
     dev = previous.device
-    prev_f = previous.to(torch.float32)
-    curr_f = current.to(torch.float32)
-    scale = float(max(previous.shape))
     sched = _schedule(learning_rate, iterations).to(dev)
-    p = params.detach().to(torch.float32).clone()
-    mu = torch.zeros_like(p)
-    nu = torch.zeros_like(p)
-    losses = []
-    for t in range(iterations):
-        p.requires_grad_(True)
-        loss = photometric_loss(p, prev_f, curr_f, model, scale)
-        (g,) = torch.autograd.grad(loss, p)
-        p = p.detach()
-        losses.append(loss.detach())
-        lr, bc1, bc2 = sched[t]
-        mu = (1 - _B1) * g + _B1 * mu
-        nu = (1 - _B2) * (g * g) + _B2 * nu
-        update = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
-        p = p + (-lr) * update
-    losses = torch.stack(losses) if losses else torch.zeros(0, device=dev)
-    return p, losses
+    return _adam_level_jit(params.detach().to(device=dev, dtype=torch.float32),
+                           previous.to(torch.float32), current.to(torch.float32), sched,
+                           model, float(max(previous.shape)))
 
 
 def _pyramid(frame: torch.Tensor, levels: int):

@@ -30,6 +30,7 @@ from gme_tpu_torch.ops.bbme import get_motion_field
 from gme_tpu_torch.ops.metrics import frame_difference, psnr
 from gme_tpu_torch.ops.pyramid import get_pyramids
 from gme_tpu_torch.ops.warp import compensate_frame
+from gme_tpu_torch.utils.compiled import compiled
 
 _DEFAULT = GMEConfig()
 
@@ -150,13 +151,14 @@ def motion_compensation(previous, current, cfg: GMEConfig = _DEFAULT):
     return compensate_frame(previous, field)
 
 
-def gme_pipeline_batch(
+def gme_pipeline_batch_eager(
     previous_batch: torch.Tensor, current_batch: torch.Tensor,
     cfg: GMEConfig = _DEFAULT,
 ) -> Dict[str, torch.Tensor]:
     """The full results-pipeline step (reference results.py:47-110) on a
     (B, H, W) uint8 batch of frame pairs: GME -> dense affine field ->
-    compensation -> diffs -> PSNR.  Outputs carry the leading B."""
+    compensation -> diffs -> PSNR.  Outputs carry the leading B.  Run
+    op by op; `gme_pipeline_batch` is its compiled form."""
     parameters, diag = global_motion_estimation_with_diagnostics(
         previous_batch, current_batch, cfg
     )
@@ -176,6 +178,12 @@ def gme_pipeline_batch(
     }
 
 
+# The JAX package's compiled entry points (JAX models/gme.py:174-203): one
+# captured CUDA graph per (cfg, shapes, device) on the card, the eager body
+# on the CPU (`utils/compiled.py`).
+gme_pipeline_batch = compiled(gme_pipeline_batch_eager, static_argnames=("cfg",))
+
+
 def gme_pipeline_step(
     previous: torch.Tensor, current: torch.Tensor, cfg: GMEConfig = _DEFAULT
 ) -> Dict[str, torch.Tensor]:
@@ -185,7 +193,11 @@ def gme_pipeline_step(
     return {k: v[0] for k, v in out.items()}
 
 
-def _merge_adaptive(fast_out, full_out, escaped: torch.Tensor):
+gme_pipeline_step_jit = compiled(gme_pipeline_step, static_argnames=("cfg",))
+global_motion_estimation_jit = compiled(global_motion_estimation, static_argnames=("cfg",))
+
+
+def _merge_adaptive_eager(fast_out, full_out, escaped: torch.Tensor):
     """Per-pair select: the full-radius outputs where the fast tier's walk
     entered the volume's boundary ring, the fast outputs elsewhere."""
 
@@ -194,6 +206,9 @@ def _merge_adaptive(fast_out, full_out, escaped: torch.Tensor):
         return torch.where(sel, a_full, a_fast)
 
     return {k: pick(full_out[k], fast_out[k]) for k in full_out}
+
+
+_merge_adaptive = compiled(_merge_adaptive_eager)
 
 
 def gme_pipeline_batch_adaptive(
@@ -206,8 +221,9 @@ def gme_pipeline_batch_adaptive(
     diamond walk entered the tight volume's boundary ring (per-pair
     `volume_edge_hits` > 0, the certificate of `diamond_walk_volume`) are
     recomputed at the full radii and merged per pair, so the result equals
-    `gme_pipeline_batch(cfg)`.  The certificate is read on the host once;
-    the full tier runs only if some pair escaped."""
+    `gme_pipeline_batch(cfg)`.  The certificate is read on the host once,
+    as in the JAX package; the full tier runs only if some pair escaped.
+    Each tier is one compiled batch step, and the merge is compiled."""
     fast_out = gme_pipeline_batch(previous_batch, current_batch, cfg.fast())
     escaped = fast_out["volume_edge_hits"] > 0
     if not bool(escaped.any()):

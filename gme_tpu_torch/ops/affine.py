@@ -28,9 +28,37 @@ from typing import Tuple
 import torch
 
 from gme_tpu_torch.utils import guards
+from gme_tpu_torch.utils.compiled import compiled
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c rounded once, like an FMA instruction, broadcast
+    over the three.  Differentiable: under autograd it is
+    `_FusedMultiplyAdd`, whose gradients are those of a*b + c."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, c)):
+        return _FusedMultiplyAdd.apply(a, b, c)
+    return _fma_value(a, b, c)
+
+
+class _FusedMultiplyAdd(torch.autograd.Function):
+    """`_fma` with the gradients of a*b + c: g*b, g*a and g, each summed
+    over the dimensions its input was broadcast along.  XLA differentiates
+    the unfused product and sum, so these are its backward's terms."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = (a.shape, b.shape, c.shape)
+        return _fma_value(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        sa, sb, sc = ctx.shapes
+        return (g * b).sum_to_size(sa), (g * a).sum_to_size(sb), g.sum_to_size(sc)
+
+
+def _fma_value(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a*b + c rounded once, like an FMA instruction.
 
     The product of two float32 values is exact in float64; the sum is taken
@@ -87,6 +115,10 @@ def get_motion_field_affine(
     return d.nan_to_num_(0.0).clamp_(lo, hi).to(torch.int16)
 
 
+# JAX affine.py:277-279: one captured CUDA graph per (shape, B, device).
+get_motion_field_affine_jit = compiled(get_motion_field_affine, static_argnames=("shape",))
+
+
 def compute_first_parameters(dense_motion_field: torch.Tensor) -> torch.Tensor:
     """Translation-only init: a0/b0 = mean shift (reference motion.py:176-188).
     (B, nbh, nbw, 2) int field -> (B, 6) float32.
@@ -94,7 +126,8 @@ def compute_first_parameters(dense_motion_field: torch.Tensor) -> torch.Tensor:
     The mean is the exact integer sum times the float32 reciprocal of the
     cell count, which is what `jnp.mean` compiles to under XLA."""
     f = dense_motion_field.to(torch.float32)
-    inv_n = (torch.tensor(1.0) / torch.tensor(float(f.shape[1] * f.shape[2]))).to(f.device)
+    # A 0-dim CPU tensor, which an op on the card reads as a scalar: no copy.
+    inv_n = torch.tensor(1.0) / torch.tensor(float(f.shape[1] * f.shape[2]))
     a0 = f[..., 0].sum(dim=(1, 2)) * inv_n
     b0 = f[..., 1].sum(dim=(1, 2)) * inv_n
     z = torch.zeros_like(a0)
@@ -104,9 +137,9 @@ def compute_first_parameters(dense_motion_field: torch.Tensor) -> torch.Tensor:
 def parameter_projection(parameters: torch.Tensor) -> torch.Tensor:
     """Project params one pyramid level finer: a0 *= 2, b0 *= 2
     (reference motion.py:191-207)."""
-    scale = torch.tensor([2.0, 1.0, 1.0, 2.0, 1.0, 1.0], dtype=torch.float32,
-                         device=parameters.device)
-    return parameters * scale
+    out = parameters.clone()
+    out[:, 0::3] *= 2.0  # a0 and b0
+    return out
 
 
 def moments_fit_ok(
@@ -143,7 +176,8 @@ def int_moments(
     _, nbh, nbw = inlier_mask.shape
     m = inlier_mask.to(torch.int64)
     x, y = _cell_coords(nbh, nbw, torch.int64, m.device)
-    row0 = torch.as_tensor(row0, dtype=torch.int64, device=m.device).reshape(-1, 1, 1)
+    if isinstance(row0, torch.Tensor):
+        row0 = row0.to(device=m.device, dtype=torch.int64).reshape(-1, 1, 1)
     x, y = (x + row0) * coord_stride, y * coord_stride
     d0 = motion_field[..., 0].to(torch.int64) * m
     d1 = motion_field[..., 1].to(torch.int64) * m
@@ -162,29 +196,29 @@ def params_from_moments(moments: torch.Tensor) -> torch.Tensor:
     parameters; under `guards.debug_checks()` it raises instead, as the JAX
     package's `guards.check` does.
 
-    The solve runs on the host whatever the moments' device: they are 12
-    numbers a pair, and on the card each of its hundred-odd small ops would
-    be a launch."""
-    dev = moments.device
-    mom = moments.cpu().to(torch.float32).T  # (12, B)
+    The solve runs on the moments' device and reads nothing back: inside a
+    compiled step (`utils/compiled.py`) its hundred-odd small ops are one
+    graph.  Its float64 steps and float32 division are IEEE on the card as
+    on the host, so both give the same bits."""
+    mom = moments.to(torch.float32).T  # (12, B)
     n, Sx, Sy = mom[0], mom[1], mom[2]
     guards.check(n > 0, "affine fit: empty inlier set (all cells masked out)")
     xbar = Sx / n
     ybar = Sy / n
     # Independent terms share one `_fma` call; each element keeps its own
     # operation order.
-    Gxx, Gxy, Gyy = _fma(-mom[[1, 1, 2]], torch.stack([xbar, ybar, ybar]), mom[3:6])
+    Gxx, Gxy, Gyy = _fma(-torch.stack([Sx, Sx, Sy]), torch.stack([xbar, ybar, ybar]), mom[3:6])
     det = _fma(Gxx, Gyy, -(Gxy * Gxy))
     guards.check(det != 0, "affine fit: singular normal equations (inlier cells are collinear)")
 
     # Both axes at once: row k of Sd, Sxd, Syd is the axis of d_k.
-    Sd, Sxd, Syd = mom[[6, 9]], mom[[7, 10]], mom[[8, 11]]
+    Sd, Sxd, Syd = mom[6::3], mom[7::3], mom[8::3]
     bx, by = _fma(-torch.stack([xbar, ybar])[:, None], Sd, torch.stack([Sxd, Syd]))
     a1, a2 = _fma(torch.stack([bx, by]), torch.stack([Gyy, Gxx])[:, None],
                   -(torch.stack([by, bx]) * Gxy)) / det
     a0 = _fma(-a2, ybar, _fma(-a1, xbar, Sd / n))
     # [a0, a1, a2, b0, b1, b2] per pair
-    return torch.stack([a0, a1, a2], dim=1).reshape(6, -1).T.contiguous().to(dev)
+    return torch.stack([a0, a1, a2], dim=1).reshape(6, -1).T.contiguous()
 
 
 def fit_normal_equations(
@@ -224,7 +258,7 @@ def _fit_normal_equations_f32(
     B, nbh, nbw = inlier_mask.shape
     H, W = frame_shape
     dev = motion_field.device
-    w = torch.tensor(1.0 / (H * W), dtype=torch.float32, device=dev)
+    w = torch.tensor(1.0 / (H * W), dtype=torch.float32)  # a 0-dim CPU scalar: no copy
     xs, ys = _cell_coords(nbh, nbw, torch.float32, dev)
     xs, ys = xs * coord_stride, ys * coord_stride
     mw = inlier_mask.to(torch.float32) * w

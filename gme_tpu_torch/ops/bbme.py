@@ -49,6 +49,7 @@ from gme_tpu_torch.config import (
 )
 from gme_tpu_torch.ops import cuda_kernels
 from gme_tpu_torch.ops.cuda_kernels import LDSP
+from gme_tpu_torch.utils.compiled import compiled, while_loop
 
 _INF = float("inf")
 # SDSP offsets as the reference applies them, (row, col) swapped
@@ -56,6 +57,10 @@ _INF = float("inf")
 SDSP = ((0, 0), (0, 1), (1, 0), (0, -1), (-1, 0))
 # Padding candidates of the 2D-log cross pattern: far out of every frame.
 _FAR = -(2**31) // 4
+# Steps of the 2D-log and gather-diamond loops between two reads of their
+# condition on the host (`utils.compiled.while_loop`), after the steps every
+# walk takes: a read costs far less than a masked step of 720p blocks.
+LOOP_CHUNK = 4
 
 # An evaluator maps candidate positions (B, nbh, nbw, K, 2) and a validity
 # mask (B, nbh, nbw, K) to DFD costs (B, nbh, nbw, K), +inf where invalid.
@@ -76,6 +81,17 @@ def block_dfd(diff: torch.Tensor, pnorm: int) -> torch.Tensor:
     else:
         raise ValueError(f"unknown pnorm index {pnorm}")
     return per_px.sum(dim=(-2, -1), dtype=torch.int32).to(torch.float32)
+
+
+def _offset_table(rows, device) -> torch.Tensor:
+    """(K, 2) int32 table of small (row, col) offsets in [-4, 3], made on
+    `device` from one integer code of 3 bits an entry: no copy from the
+    host, which a CUDA graph capture does not allow."""
+    flat = [v for row in rows for v in row]
+    code = sum((v + 4) << (3 * i) for i, v in enumerate(flat))
+    shifts = torch.arange(len(flat), dtype=torch.int64, device=device) * 3
+    vals = (torch.full_like(shifts, code) >> shifts) & 7
+    return (vals - 4).to(torch.int32).reshape(-1, 2)
 
 
 def _block_grid(height: int, width: int, bs: int) -> Tuple[int, int]:
@@ -341,10 +357,10 @@ def exhaustive_search(
 
 def _nine_offsets(step: int, device) -> torch.Tensor:
     """(9, 2) int32 (row, col) offsets in the reference's scan order,
-    window_col outer, window_row inner (bbme.py:229-231)."""
-    vals = (-step, 0, step)
-    return torch.tensor([(wr, wc) for wc in vals for wr in vals],
-                        dtype=torch.int32, device=device)
+    window_col outer, window_row inner (bbme.py:229-231): entry k is
+    ((k % 3 - 1) * step, (k // 3 - 1) * step)."""
+    k = torch.arange(9, dtype=torch.int32, device=device)
+    return torch.stack([(k % 3 - 1) * step, (k // 3 - 1) * step], dim=-1)
 
 
 def _threestep_steps(block_size: int, search_window: int) -> Tuple[int, int, int]:
@@ -421,7 +437,12 @@ def twodlog_search(
     `volume_edge_hits` (B,) counts the walks (volume engine only) whose
     displacement plus step reached the volume radius max(volume_radius,
     2*sw), where a candidate could read +inf through the radius mask; 0
-    means the field equals the unbounded gather engine's."""
+    means the field equals the unbounded gather engine's.
+
+    The loop runs floor(log2(sw)) steps, then chunks of LOOP_CHUNK steps
+    with one host read of its condition before each chunk
+    (`utils.compiled.while_loop`, JAX's `lax.while_loop`); an iteration
+    count on the device keeps `max_iters` exact."""
     B, H, W = previous.shape
     bs, sw = block_size, search_window
     radius = max(volume_radius, 2 * sw)
@@ -431,15 +452,18 @@ def twodlog_search(
     dev = previous.device
 
     x, y = origins[..., 0].clone(), origins[..., 1].clone()
-    dx, dy = torch.zeros_like(x), torch.zeros_like(y)
     step = torch.full_like(x, sw)
     touched = torch.zeros(x.shape, dtype=torch.bool, device=dev)
-    neigh9 = torch.tensor([(r, c) for r in (-2, 0, 2) for c in (-2, 0, 2)],
-                          dtype=torch.int32, device=dev)
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    # The row-major 3x3 neighbourhood at distance 2: ((k // 3 - 1) * 2, (k % 3 - 1) * 2).
+    k9 = torch.arange(9, dtype=torch.int32, device=dev)
+    neigh9 = torch.stack([(k9 // 3 - 1) * 2, (k9 % 3 - 1) * 2], dim=-1)
     far = torch.full(x.shape + (4, 2), _FAR, dtype=torch.int32, device=dev)
 
-    it = 0
-    while it < max_iters and bool((step > 1).any()):
+    def body(state):
+        # One lockstep step; a block is active while its step exceeds 1
+        # and the loop has made fewer than max_iters steps.
+        x, y, dx, dy, step, touched, it = state
         zero = torch.zeros_like(step)
         cross = torch.stack([torch.stack(v, dim=-1) for v in (
             (zero, zero), (step, zero), (-step, zero), (zero, step), (zero, -step))], dim=-2)
@@ -450,15 +474,22 @@ def twodlog_search(
         ndx, ndy = best[..., 0], best[..., 1]
         halve = ((ndx == x) & (ndy == y)) | (step == 2)
         nstep = torch.where(halve, step // 2, step)
-        active = step > 1
+        active = (step > 1) & (it < max_iters)
         disp = torch.maximum((x - origins[..., 0]).abs(), (y - origins[..., 1]).abs())
-        touched |= active & (disp + step > radius)
-        x = torch.where(active, ndx, x)
-        y = torch.where(active, ndy, y)
-        dx = torch.where(active, ndx, dx)
-        dy = torch.where(active, ndy, dy)
-        step = torch.where(active, nstep, step)
-        it += 1
+        touched = touched | (active & (disp + step > radius))
+        return (torch.where(active, ndx, x), torch.where(active, ndy, y),
+                torch.where(active, ndx, dx), torch.where(active, ndy, dy),
+                torch.where(active, nstep, step), touched, it + 1)
+
+    def cond(state):
+        return (state[4] > 1).any() & (state[6] < max_iters)
+
+    state = (x, y, torch.zeros_like(x), torch.zeros_like(y), step, touched, it)
+    # Every walk halves its step at most once a step, so none ends before
+    # floor(log2(sw)) steps: those run with no read of the condition.
+    for _ in range(max(sw, 1).bit_length() - 1):
+        state = body(state)
+    _, _, dx, dy, _, touched, _ = while_loop(cond, body, state, LOOP_CHUNK)
     # Reference bbme.py:430-431: channel 1 = dx - block_row, 0 = dy - block_col.
     field = _field(torch.stack([dx, dy], dim=-1), origins)
     if return_diagnostics:
@@ -487,25 +518,33 @@ def diamond_walk(
 ) -> torch.Tensor:
     """The gather-engine diamond walk: LDSP steps in lockstep until every
     block's centre wins, then one SDSP pass (JAX bbme.py:672-715).  Returns
-    the best absolute positions, shaped like `origins`."""
+    the best absolute positions, shaped like `origins`.  The loop runs one
+    step, then chunks of LOOP_CHUNK steps, one host read a chunk, as
+    `twodlog_search`'s."""
     dev = origins.device
-    ldsp = torch.tensor(LDSP, dtype=torch.int32, device=dev)
-    sdsp = torch.tensor(SDSP, dtype=torch.int32, device=dev)
+    ldsp = _offset_table(LDSP, dev)
+    sdsp = _offset_table(SDSP, dev)
 
     def eval_at(offsets, match):
         pos = _clamped(match[..., None, :] + offsets, H, W, block_size)
         return _take_best(pos, evaluate(pos, torch.ones(pos.shape[:-1], dtype=torch.bool,
                                                         device=dev)))
 
-    match = origins
-    done = torch.zeros(origins.shape[:-1], dtype=torch.bool, device=dev)
-    it = 0
-    while it < max_iters and not bool(done.all()):
+    def body(state):
+        # One LDSP step of every walk not yet done, within max_iters steps.
+        match, done, it = state
+        go = it < max_iters
         best = eval_at(ldsp, match)
-        ndone = done | (best == match).all(dim=-1)
-        match = torch.where(done[..., None], match, best)
-        done = ndone
-        it += 1
+        moved = torch.where((~done & go)[..., None], best, match)
+        return moved, done | (go & (best == match).all(dim=-1)), it + 1
+
+    def cond(state):
+        return (~state[1]).any() & (state[2] < max_iters)
+
+    done = torch.zeros(origins.shape[:-1], dtype=torch.bool, device=dev)
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    # Every walk takes one step at least.
+    match, _, _ = while_loop(cond, body, body((origins, done, it)), LOOP_CHUNK)
     return eval_at(sdsp, match)
 
 
@@ -690,7 +729,7 @@ def diamond_walk_volume(
     match = torch.stack([og[..., 0] + o // D - R, og[..., 1] + o % D - R], dim=-1)
 
     # Single SDSP pass (reference bbme.py:515-529) through the volume.
-    sdsp = torch.tensor(SDSP, dtype=torch.int32, device=volume.device)
+    sdsp = _offset_table(SDSP, volume.device)
     pos = _clamped(match[..., None, :] + sdsp, H, W, bs)
     cost = volume_evaluator(volume, og, R)(pos, torch.ones(pos.shape[:-1], dtype=torch.bool,
                                                              device=volume.device))
@@ -774,3 +813,11 @@ def get_motion_field_cfg(previous: torch.Tensor, current: torch.Tensor, cfg: BBM
         previous, current, cfg.block_size, cfg.search_window, cfg.searching_procedure,
         cfg.pnorm_distance, cfg.max_search_iters, cfg.search_impl, cfg.volume_radius,
     )
+
+
+# The JAX package's compiled dispatch (JAX bbme.py:1229-1262): one captured
+# CUDA graph per (static arguments, shapes, device) on the card; 2D-log and
+# the gather diamond as a chain of graphs around their chunked loops.
+get_motion_field_jit = compiled(get_motion_field, static_argnames=(
+    "block_size", "search_window", "searching_procedure", "pnorm_distance", "max_iters",
+    "search_impl", "volume_radius", "return_diagnostics"))

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from gme_tpu_torch.utils.compiled import compiled
+
 
 def sse(original: torch.Tensor, noisy: torch.Tensor) -> torch.Tensor:
     """(B,) int64 sum of squared differences of (B, ..., H, W) integer frames:
@@ -39,6 +41,9 @@ def psnr(original: torch.Tensor, noisy: torch.Tensor) -> torch.Tensor:
     mse = (diff * diff).mean(dim=(-2, -1))
     val = 20.0 * torch.log10(255.0 / torch.sqrt(mse))
     return torch.where(mse == 0, torch.full_like(val, -1.0), val)
+
+
+psnr_jit = compiled(psnr)  # JAX metrics.py:23
 
 
 def frame_difference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

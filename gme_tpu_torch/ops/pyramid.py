@@ -15,6 +15,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from gme_tpu_torch.utils.compiled import compiled
+
 _W5 = (1, 4, 6, 4, 1)
 
 
@@ -50,3 +52,6 @@ def get_pyramids(img: torch.Tensor, levels: int = 3) -> List[torch.Tensor]:
         curr = pyrdown(curr)
         pyramid.insert(0, curr)
     return pyramid
+
+
+get_pyramids_jit = compiled(get_pyramids, static_argnames=("levels",))  # JAX pyramid.py:97

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from gme_tpu_torch.ops import cuda_kernels
+from gme_tpu_torch.utils.compiled import compiled
 
 
 def compensate_frame(frame: torch.Tensor, motion_field: torch.Tensor) -> torch.Tensor:
@@ -26,7 +27,7 @@ def compensate_frame(frame: torch.Tensor, motion_field: torch.Tensor) -> torch.T
     d = motion_field.to(torch.int32).contiguous()
     warped = cuda_kernels.warp_block_field(frame.contiguous(), d, bs)
 
-    d_px = d.repeat_interleave(bs, dim=1).repeat_interleave(bs, dim=2)
+    d_px = d[:, :, None, :, None].expand(B, nbh, bs, nbw, bs, 2).reshape(B, cov_h, cov_w, 2)
     rr = torch.arange(cov_h, dtype=torch.int32, device=frame.device)[:, None]
     cc = torch.arange(cov_w, dtype=torch.int32, device=frame.device)[None, :]
     src_r = rr - d_px[..., 1]
@@ -35,3 +36,6 @@ def compensate_frame(frame: torch.Tensor, motion_field: torch.Tensor) -> torch.T
     out = frame.clone()
     out[:, :cov_h, :cov_w] = torch.where(valid, warped, frame[:, :cov_h, :cov_w])
     return out
+
+
+compensate_frame_jit = compiled(compensate_frame)  # JAX warp.py:131

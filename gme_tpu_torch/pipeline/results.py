@@ -15,9 +15,10 @@ compensated streams included) and the `resume`, `max_pairs`,
 `frame_distance`, `shard` and `gop_size` semantics are the JAX driver's.
 
 Double buffering.  The JAX driver overlaps a batch's host writes with the
-next batch's device compute through asynchronous dispatch.  The port's step
-synchronises with the host inside itself, so it returns only near the end
-of its batch; instead each finished batch is handed to one writer thread.
+next batch's device compute through asynchronous dispatch.  On the card the
+port's step is a compiled `gme_pipeline_batch` (a CUDA graph replay that
+reads nothing back; the adaptive dispatch reads its certificate once), and
+each finished batch is handed to one writer thread.
 Its outputs go to the host by a non-blocking copy into pinned memory, and
 the writer waits on a CUDA event recorded after the copy, then writes the
 images and, after them, the records (the image-before-record fence: the

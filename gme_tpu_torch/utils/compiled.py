@@ -1,0 +1,373 @@
+"""`compiled`: the port's `jax.jit`, as captured CUDA graphs.
+
+The JAX package compiles its entry points with `jax.jit`: one XLA program
+per set of shapes and static arguments, dispatched once, reading nothing
+back to the host.  Here a compiled function is one captured CUDA graph (or
+a short chain of them, see `while_loop`) per key:
+
+    key = (static arguments, each tensor argument's shape, dtype, device,
+           every other non-tensor argument)
+
+- On the CPU, or with no tensor argument on a CUDA device, the call runs
+  the function itself: the CPU has no graphs, and the result is the same
+  function's.
+- Under `guards.debug_checks()` the call runs the function itself too, so
+  that its checks are read: the JAX package reads its checks when it
+  traces, and its compiled programs run without them.  A capture never
+  reads a guard.
+- On CUDA, the first call of a key runs the function once eagerly on a
+  side stream (it loads the kernel library and runs each wrapper's
+  first-shape work), captures it into a CUDA graph in the function's memory
+  pool, and replays the graph.  Later calls copy their tensors into the
+  entry's input buffers, replay, and return copies of the outputs, so a
+  later call never overwrites an earlier result (JAX arrays are immutable).
+- A capture that fails raises, naming the function and the line where it
+  broke; nothing falls back to the eager function.
+- A function called inside another compiled function's capture runs
+  inline, as a jitted function inside `jit` does.
+
+Each compiled function keeps at most MAX_ENTRIES keys (the least recently
+used goes first) and one memory pool per device, shared by its entries:
+their replays run one after another on the caller's stream, and every
+output is copied before the next replay, so no entry reads memory that
+another's replay wrote.  `clear()` frees every graph and the pools.
+
+`while_loop(cond, body, state, chunk)` is the counterpart of
+`lax.while_loop` for loops whose body is masked (a finished element does
+not change): while one read of `cond` on the host is true, `chunk` steps.
+Eagerly that is the loop itself; inside a capture it splits the graph
+there, so the entry becomes a graph up to the loop (which computes the
+first condition), a graph of `chunk` steps and the next condition,
+replayed once per true read, and a graph after it.
+
+Launches.  The kernel wrappers count their launches (`cuda_kernels.LAUNCHES`)
+where they launch, which a replay does not do.  A capture records each
+graph's launches and leaves `LAUNCHES` as it found it; each replay adds its
+graphs' launches to `REPLAY_LAUNCHES`.  So `LAUNCHES` counts the eager
+launches, `REPLAY_LAUNCHES` the launches the replays made, and
+`Entry.launches` holds one call's (the last call's, for a loop).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import inspect
+import os
+import threading
+import traceback
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from gme_tpu_torch.ops import cuda_kernels
+from gme_tpu_torch.utils import guards
+
+REPLAY_LAUNCHES: Dict[str, int] = {name: 0 for name in cuda_kernels.LAUNCHES}
+# Keys a compiled function keeps, the least recently used freed first.
+MAX_ENTRIES = 8
+
+# Set while a compiled function's body runs for its warm-up or capture: a
+# compiled function called then runs inline, and `while_loop` splits the
+# capture.
+_TRACING: contextvars.ContextVar = contextvars.ContextVar("gme_tpu_torch_compiled", default=None)
+
+
+def reset_replay_counts() -> None:
+    for name in REPLAY_LAUNCHES:
+        REPLAY_LAUNCHES[name] = 0
+
+
+class CaptureError(RuntimeError):
+    """A compiled function could not be captured into a CUDA graph."""
+
+
+# ---------------------------------------------------------------------------
+# Argument trees
+# ---------------------------------------------------------------------------
+
+def _flatten(tree) -> Tuple[List[torch.Tensor], Any]:
+    """(tensor leaves, structure): dicts, lists and tuples are walked; a
+    non-tensor leaf stays in the structure (and so in the key)."""
+    leaves: List[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return ("T",)
+        if isinstance(x, dict):
+            return ("D", tuple((k, walk(v)) for k, v in x.items()))
+        if isinstance(x, (list, tuple)):
+            return ("L" if isinstance(x, list) else "U", tuple(walk(v) for v in x))
+        return ("V", x)
+
+    return leaves, walk(tree)
+
+
+def _unflatten(struct, leaves):
+    it = iter(leaves)
+
+    def build(s):
+        tag = s[0]
+        if tag == "T":
+            return next(it)
+        if tag == "D":
+            return {k: build(v) for k, v in s[1]}
+        if tag in ("L", "U"):
+            items = [build(v) for v in s[1]]
+            return items if tag == "L" else tuple(items)
+        return s[1]
+
+    return build(struct)
+
+
+def _failing_line(tb) -> str:
+    """The innermost line of a traceback outside this module and torch:
+    the op of the compiled function that broke its capture."""
+    torch_dir = os.path.dirname(os.path.abspath(torch.__file__))
+    frames = [f for f in traceback.extract_tb(tb)
+              if f.filename != os.path.abspath(__file__) and not f.filename.startswith(torch_dir)]
+    if not frames:
+        return "an unknown line"
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno} `{f.line}`"
+
+
+# ---------------------------------------------------------------------------
+# Capture sessions and entries
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _Graph:
+    graph: Any  # torch.cuda.CUDAGraph
+    launches: Dict[str, int]
+    flag: Optional[torch.Tensor] = None  # a loop graph's condition, read before each replay
+
+
+@dataclass
+class Entry:
+    """One key's captured graphs.  `graphs` in order; a loop graph (one with
+    a `flag`) replays while its flag, read before each replay, is true."""
+    inputs: List[torch.Tensor]
+    outputs: List[torch.Tensor]
+    out_struct: Any
+    graphs: List[_Graph] = field(default_factory=list)
+    host_reads: int = 0  # of the last call
+    launches: Dict[str, int] = field(default_factory=dict)  # of the last call
+
+    def replay(self) -> None:
+        reads = 0
+        launched = collections.Counter()
+        for g in self.graphs:
+            while g.flag is None or bool(g.flag):
+                g.graph.replay()
+                launched.update(g.launches)
+                if g.flag is None:
+                    break
+                reads += 1
+            if g.flag is not None:
+                reads += 1  # the read that ended the loop
+        for name, n in launched.items():
+            REPLAY_LAUNCHES[name] += n
+        self.host_reads = reads
+        self.launches = {k: launched.get(k, 0) for k in REPLAY_LAUNCHES}
+
+    def release(self) -> None:
+        for g in self.graphs:
+            g.graph.reset()
+        self.graphs.clear()
+        self.inputs.clear()
+        self.outputs.clear()
+
+
+class _Session:
+    """One capture: a chain of graphs in one pool on one stream."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.graphs: List[_Graph] = []
+        self._open = None  # (graph, launches before)
+
+    def begin(self) -> None:
+        g = torch.cuda.CUDAGraph()
+        before = dict(cuda_kernels.LAUNCHES)
+        g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self._open = (g, before)
+
+    def end(self, flag: Optional[torch.Tensor] = None) -> None:
+        g, before = self._open
+        self._open = None
+        g.capture_end()
+        launches = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
+        # The capture recorded these launches without running them.
+        cuda_kernels.LAUNCHES.update(before)
+        self.graphs.append(_Graph(g, launches, flag))
+
+    def abort(self) -> None:
+        if self._open is None:
+            return
+        g, before = self._open
+        self._open = None
+        cuda_kernels.LAUNCHES.update(before)
+        with contextlib.suppress(RuntimeError):
+            g.capture_end()
+
+
+_STREAMS: Dict[torch.device, Any] = {}
+
+
+def _side_stream(device: torch.device):
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device)
+    return _STREAMS[device]
+
+
+def while_loop(cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...], chunk: int):
+    """Run `body` on the tuple of tensors `state` in chunks of `chunk`
+    steps while `cond(state)`, a 0-dim bool tensor, is true before a chunk;
+    returns the final state.  `body` must leave a finished state as it is
+    (masked steps), so steps past the end change nothing.  One host read of
+    `cond` per chunk and one that ends the loop; inside a capture the loop
+    becomes its own graph (module docstring)."""
+    state = tuple(t.clone() for t in state)
+    sess = _TRACING.get()
+    if not isinstance(sess, _Session):
+        while bool(cond(state)):
+            for _ in range(chunk):
+                state = tuple(body(state))
+        return state
+    flag = cond(state)
+    sess.end()
+    sess.begin()
+    new = state
+    for _ in range(chunk):
+        new = tuple(body(new))
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+    flag.copy_(cond(state))
+    sess.end(flag=flag)
+    sess.begin()
+    return state
+
+
+class Compiled:
+    """A function compiled into CUDA graphs per key (module docstring)."""
+
+    def __init__(self, fn: Callable, static_argnames: Tuple[str, ...] = ()):
+        self.fn = fn
+        self.name = getattr(fn, "__qualname__", repr(fn))
+        self.static_argnames = tuple(static_argnames)
+        self.signature = inspect.signature(fn)
+        unknown = set(self.static_argnames) - set(self.signature.parameters)
+        if unknown:
+            raise ValueError(f"{self.name}: no arguments named {sorted(unknown)}")
+        self.entries: "collections.OrderedDict[Any, Entry]" = collections.OrderedDict()
+        self.last_entry: Optional[Entry] = None  # the entry the last call on CUDA replayed
+        self._pools: Dict[torch.device, Any] = {}
+        self._lock = threading.Lock()
+        self.__wrapped__ = fn
+        self.__doc__ = fn.__doc__
+
+    def __repr__(self) -> str:
+        return f"<compiled {self.name}, {len(self.entries)} entries>"
+
+    def _split(self, args, kwargs):
+        bound = self.signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        static = tuple((k, bound.arguments[k]) for k in self.static_argnames)
+        dynamic = {k: v for k, v in bound.arguments.items() if k not in self.static_argnames}
+        leaves, struct = _flatten(dynamic)
+        return static, dynamic, leaves, struct
+
+    def key(self, *args, **kwargs):
+        """The cache key of a call: the static arguments, the structure of
+        the others with their non-tensor values, and each tensor's shape,
+        dtype and device."""
+        static, _, leaves, struct = self._split(args, kwargs)
+        return (static, struct, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+
+    def __call__(self, *args, **kwargs):
+        static, dynamic, leaves, struct = self._split(args, kwargs)
+        devices = {t.device for t in leaves}
+        if (_TRACING.get() is not None or guards.checks_enabled()
+                or not any(d.type == "cuda" for d in devices)):
+            return self.fn(*args, **kwargs)
+        if len(devices) != 1:
+            raise ValueError(f"{self.name}: tensors on different devices: "
+                             f"{sorted(map(str, devices))}")
+        device = devices.pop()
+        key = (static, struct, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+        with self._lock:
+            entry = self.entries.get(key)
+            if entry is None:
+                entry = self._capture(static, struct, leaves, device)
+                self.entries[key] = entry
+                while len(self.entries) > MAX_ENTRIES:
+                    self.entries.popitem(last=False)[1].release()
+            else:
+                self.entries.move_to_end(key)
+                for buf, t in zip(entry.inputs, leaves):
+                    buf.copy_(t)
+            with torch.cuda.device(device):
+                entry.replay()
+                outs = [t.clone() for t in entry.outputs]
+            self.last_entry = entry
+        return _unflatten(entry.out_struct, outs)
+
+    def _call_body(self, static, struct, inputs):
+        kwargs = dict(_unflatten(struct, inputs))
+        kwargs.update(static)
+        return self.fn(**kwargs)
+
+    def _capture(self, static, struct, leaves, device) -> Entry:
+        inputs = [torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t) for t in leaves]
+        stream = _side_stream(device)
+        with torch.cuda.device(device):
+            # Warm-up: one eager run on the side stream.
+            stream.wait_stream(torch.cuda.current_stream(device))
+            token = _TRACING.set("warm-up")
+            try:
+                with torch.cuda.stream(stream):
+                    self._call_body(static, struct, inputs)
+            finally:
+                _TRACING.reset(token)
+            torch.cuda.current_stream(device).wait_stream(stream)
+            torch.cuda.synchronize(device)
+            if device not in self._pools:
+                self._pools[device] = torch.cuda.graph_pool_handle()
+            sess = _Session(self._pools[device])
+            token = _TRACING.set(sess)
+            try:
+                with torch.cuda.stream(stream):
+                    sess.begin()
+                    out = self._call_body(static, struct, inputs)
+                    sess.end()
+            except Exception as e:
+                with torch.cuda.stream(stream):
+                    sess.abort()
+                for g in sess.graphs:
+                    g.graph.reset()
+                raise CaptureError(
+                    f"compiled {self.name}: the CUDA graph capture failed at "
+                    f"{_failing_line(e.__traceback__)}: {type(e).__name__}: {e}") from e
+            finally:
+                _TRACING.reset(token)
+            torch.cuda.current_stream(device).wait_stream(stream)
+        outputs, out_struct = _flatten(out)
+        return Entry(inputs, outputs, out_struct, sess.graphs)
+
+    def clear(self) -> None:
+        """Free every entry's graphs and buffers, and the memory pools."""
+        with self._lock:
+            for entry in self.entries.values():
+                entry.release()
+            self.entries.clear()
+            self._pools.clear()
+            self.last_entry = None
+
+
+def compiled(fn: Callable, static_argnames: Tuple[str, ...] = ()) -> Compiled:
+    """`fn` compiled per key into CUDA graphs (module docstring)."""
+    return Compiled(fn, static_argnames)

@@ -1,0 +1,312 @@
+"""The port's compiled entry points against the JAX package's jitted ones.
+
+`gme_tpu_torch.utils.compiled` captures CUDA graphs on the card; on the
+CPU a compiled function runs its body, so here each compiled entry is held
+to its jitted JAX counterpart on the same numpy inputs (integers exactly,
+parameters to PARAM_ATOL, exact on FMA hosts, PSNR to 1e-4 dB):
+
+- the step: `gme_pipeline_batch` (default, `-sp 0/1/2`),
+  `gme_pipeline_step_jit`, `global_motion_estimation_jit`, the adaptive
+  batch and its compiled `_merge_adaptive`;
+- `get_motion_field_jit` under each procedure, 2D-log's chunked loop
+  stopped by `max_iters` inside a chunk and after several chunks, the
+  gather diamond's too;
+- `get_pyramids_jit`, `get_motion_field_affine_jit`, `compensate_frame_jit`,
+  `psnr_jit` and direct GME's `optimize_level`.
+
+And what makes a capture possible, checked on the CPU: the fit runs on
+`meta` tensors (no host copy), the default step reads nothing back to the
+host and makes no tensor from host data but 0-dim scalars, 2D-log reads
+once a chunk, `while_loop` keeps the loop's semantics, and the helper's
+cache key.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from gme_tpu.config import GMEConfig as JaxGMEConfig
+from gme_tpu.models import direct as jdirect
+from gme_tpu.models import gme as jgme
+from gme_tpu.ops import affine as jaff
+from gme_tpu.ops import bbme as jbbme
+from gme_tpu.ops import metrics as jmetrics
+from gme_tpu.ops import pyramid as jpyr
+from gme_tpu.ops import warp as jwarp
+import gme_tpu_torch
+from gme_tpu_torch.config import DIAMOND, EXHAUSTIVE, MAE, MSE, THREESTEP, TWODLOG, GMEConfig
+from gme_tpu_torch.models import direct as tdirect
+from gme_tpu_torch.models import gme as tgme
+from gme_tpu_torch.ops import affine as taff
+from gme_tpu_torch.ops import bbme as tbbme
+from gme_tpu_torch.ops import cuda_kernels
+from gme_tpu_torch.utils import compiled as C
+from test_direct import _smooth_image
+from test_torch_ops import PARAM_ATOL, PSNR_ATOL
+from test_torch_pipeline import INT_KEYS, _smooth_frame
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _pairs(seed=0, H=64, W=64, shifts=((2, 3), (16, 16))):
+    rng = np.random.RandomState(seed)
+    prev = _smooth_frame(rng, H, W)
+    return (np.stack([prev] * len(shifts)),
+            np.stack([np.roll(prev, s, (0, 1)) for s in shifts]))
+
+
+def _same_step(got, want):
+    got = {k: v.numpy() for k, v in got.items()}
+    want = {k: np.asarray(v) for k, v in want.items()}
+    assert set(got) == set(want)
+    for k in INT_KEYS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(got["parameters"], want["parameters"], rtol=0, atol=PARAM_ATOL)
+    np.testing.assert_allclose(got["psnr"], want["psnr"], rtol=0, atol=PSNR_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("options", [{}, {"searching_procedure": 0},
+                                     {"searching_procedure": 1}, {"searching_procedure": 2}])
+def test_compiled_batch_matches_jitted_jax(options):
+    prev, curr = _pairs()
+    jcfg = JaxGMEConfig(search_impl="volume", **options)
+    cfg = GMEConfig.from_dict(dataclasses.asdict(jcfg))
+    assert isinstance(gme_tpu_torch.gme_pipeline_batch, C.Compiled)
+    want = jgme.gme_pipeline_batch(jnp.asarray(prev), jnp.asarray(curr), jcfg)
+    _same_step(gme_tpu_torch.gme_pipeline_batch(_t(prev), _t(curr), cfg), want)
+
+
+def test_step_and_gme_jit_match_jitted_jax():
+    prev, curr = _pairs(1)
+    jcfg = JaxGMEConfig(search_impl="volume")
+    cfg = GMEConfig.from_dict(dataclasses.asdict(jcfg))
+    for i in range(len(prev)):
+        want = jgme.gme_pipeline_step_jit(jnp.asarray(prev[i]), jnp.asarray(curr[i]), jcfg)
+        _same_step(tgme.gme_pipeline_step_jit(_t(prev[i]), _t(curr[i]), cfg), want)
+    want = np.stack([np.asarray(jgme.global_motion_estimation_jit(
+        jnp.asarray(p), jnp.asarray(c), jcfg)) for p, c in zip(prev, curr)])
+    got = tgme.global_motion_estimation_jit(_t(prev), _t(curr), cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=PARAM_ATOL)
+
+
+def test_adaptive_batch_and_merge_match_jax():
+    """A (2, 2) pair and a (16, 16) pair under the fast radii: the second
+    escapes, so the full tier runs and the compiled merge picks per pair."""
+    prev, curr = _pairs(0, shifts=((2, 2), (16, 16)))
+    jcfg = JaxGMEConfig(search_impl="volume")
+    cfg = GMEConfig.from_dict(dataclasses.asdict(jcfg))
+    fast = tgme.gme_pipeline_batch(_t(prev), _t(curr), cfg.fast())
+    assert fast["volume_edge_hits"][0] == 0 and fast["volume_edge_hits"][1] > 0
+    want = jgme.gme_pipeline_batch_adaptive(jnp.asarray(prev), jnp.asarray(curr), jcfg)
+    _same_step(tgme.gme_pipeline_batch_adaptive(_t(prev), _t(curr), cfg), want)
+    full = tgme.gme_pipeline_batch(_t(prev), _t(curr), cfg)
+    escaped = torch.tensor([False, True])
+    jfast = {k: jnp.asarray(v.numpy()) for k, v in fast.items()}
+    jfull = {k: jnp.asarray(v.numpy()) for k, v in full.items()}
+    want = jgme._merge_adaptive(jfast, jfull, jnp.asarray(escaped.numpy()))
+    got = tgme._merge_adaptive(fast, full, escaped)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# get_motion_field_jit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sp,max_iters", [
+    (EXHAUSTIVE, 4096), (THREESTEP, 4096), (TWODLOG, 4096), (TWODLOG, 3),
+    (TWODLOG, tbbme.LOOP_CHUNK + 2), (DIAMOND, 4096),
+])
+def test_get_motion_field_jit_matches_jitted_jax(sp, max_iters):
+    """`cli bbme`'s defaults (MAE, bs 12, sw 8) on a 96x120 pair moved
+    (5, -7): 2D-log cut at 3 steps stops inside its first chunk, at
+    LOOP_CHUNK + 2 inside its second."""
+    rng = np.random.RandomState(7)
+    prev = _smooth_frame(rng, 96, 120)
+    curr = np.roll(prev, (5, -7), (0, 1))
+    kw = dict(block_size=12, search_window=8, searching_procedure=sp, pnorm_distance=MAE,
+              max_iters=max_iters, search_impl="volume")
+    want = np.asarray(jbbme.get_motion_field_jit(jnp.asarray(prev), jnp.asarray(curr), **kw))
+    got = tbbme.get_motion_field_jit(_t(prev)[None], _t(curr)[None], **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+@pytest.mark.parametrize("max_iters", [1, tbbme.LOOP_CHUNK, 4096])
+def test_gather_diamond_chunked_loop_matches_jax(max_iters):
+    rng = np.random.RandomState(8)
+    prev = _smooth_frame(rng, 64, 80)
+    curr = np.roll(prev, (9, 11), (0, 1))
+    kw = dict(block_size=8, searching_procedure=DIAMOND, pnorm_distance=MSE,
+              max_iters=max_iters, search_impl="gather")
+    want = np.asarray(jbbme.get_motion_field_jit(jnp.asarray(prev), jnp.asarray(curr), **kw))
+    got = tbbme.get_motion_field_jit(_t(prev)[None], _t(curr)[None], **kw)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# The small compiled ops and direct GME
+# ---------------------------------------------------------------------------
+
+def test_small_jit_ops_match_jitted_jax():
+    rng = np.random.RandomState(9)
+    img = rng.randint(0, 256, (2, 37, 52)).astype(np.uint8)
+    want = jpyr.get_pyramids_jit(jnp.asarray(img[0]), levels=3)
+    got = gme_tpu_torch.get_pyramids_jit(_t(img), levels=3)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
+
+    params = (rng.randn(2, 6) * np.array([3, 0.02, 0.02, 3, 0.02, 0.02])).astype(np.float32)
+    got_f = gme_tpu_torch.get_motion_field_affine_jit((4, 5), _t(params))
+    for i in range(2):
+        want_f = np.asarray(jaff.get_motion_field_affine_jit((4, 5), jnp.asarray(params[i])))
+        np.testing.assert_array_equal(got_f[i].numpy(), want_f)
+
+    frame = rng.randint(0, 256, (2, 64, 80)).astype(np.uint8)
+    field = rng.randint(-6, 7, (2, 4, 5, 2)).astype(np.int16)
+    got_c = gme_tpu_torch.compensate_frame_jit(_t(frame), _t(field))
+    other = rng.randint(0, 256, (2, 64, 80)).astype(np.uint8)
+    got_p = gme_tpu_torch.psnr_jit(_t(frame), _t(other))
+    for i in range(2):
+        want_c = np.asarray(jwarp.compensate_frame_jit(jnp.asarray(frame[i]),
+                                                       jnp.asarray(field[i])))
+        np.testing.assert_array_equal(got_c[i].numpy(), want_c)
+        want_p = float(jmetrics.psnr_jit(jnp.asarray(frame[i]), jnp.asarray(other[i])))
+        assert abs(float(got_p[i]) - want_p) <= PSNR_ATOL
+
+
+@pytest.mark.parametrize("model,n", [("perspective", 8), ("affine", 6)])
+def test_optimize_level_matches_jitted_jax(model, n):
+    """The compiled Adam loop of one level: 12 steps from a known motion."""
+    prev = _smooth_image(48, 64)
+    true = np.array(jdirect.identity_params(model)) + np.float32(0.01)
+    if model == "perspective":
+        true[6:] = 0
+    curr = np.asarray(jdirect.warp_backward(jnp.asarray(prev), jnp.asarray(true), model))
+    p0 = np.array(jdirect.identity_params(model))
+    want_p, want_l = jdirect.optimize_level(jnp.asarray(p0), jnp.asarray(prev),
+                                            jnp.asarray(curr), model=model, iterations=12)
+    got_p, got_l = tdirect.optimize_level(_t(p0), _t(prev), _t(curr), model=model,
+                                          iterations=12)
+    assert got_l.shape == (12,) and got_p.shape == (n,)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), rtol=1e-4)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# What a capture needs, on the CPU
+# ---------------------------------------------------------------------------
+
+def test_params_from_moments_runs_on_meta_tensors():
+    """The fit makes no host copy: it runs on `meta` tensors, which have no
+    data to copy, and keeps their device."""
+    mom = torch.empty((5, 12), dtype=torch.int64, device="meta")
+    out = taff.params_from_moments(mom)
+    assert out.device.type == "meta" and out.shape == (5, 6) and out.dtype == torch.float32
+
+
+class _HostTraffic(TorchDispatchMode):
+    """Counts reads of a tensor's value on the host (`item`, `bool`, ...)
+    and tensors made from host data that are not 0-dim scalars (a copy to
+    the card on CUDA); paused inside the kernel wrappers, whose plain
+    versions stand in for kernels here."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+        self.uploads = []
+        self.paused = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.paused:
+            if func is torch.ops.aten._local_scalar_dense.default:
+                self.reads += 1
+            elif func is torch.ops.aten.lift_fresh.default and out.dim() > 0:
+                self.uploads.append(tuple(out.shape))
+        return out
+
+
+def _watch(monkeypatch, mode):
+    for name in cuda_kernels.LAUNCHES:
+        wrapper = getattr(cuda_kernels, name)
+
+        def paused(*args, _wrapper=wrapper, **kw):
+            mode.paused += 1
+            try:
+                return _wrapper(*args, **kw)
+            finally:
+                mode.paused -= 1
+
+        monkeypatch.setattr(cuda_kernels, name, paused)
+
+
+@pytest.mark.parametrize("options,reads", [({}, 0), ({"searching_procedure": 2}, None)])
+def test_step_reads_nothing_back(monkeypatch, options, reads):
+    """The default step reads no tensor on the host and makes no tensor
+    from host data but 0-dim scalars (read as kernel arguments on the card);
+    `-sp 2` reads once per chunk of each of its three 2D-log loops."""
+    prev, curr = (_t(a) for a in _pairs(3))
+    cfg = GMEConfig(search_impl="volume", **options)
+    mode = _HostTraffic()
+    _watch(monkeypatch, mode)
+    with mode:
+        tgme.gme_pipeline_batch_eager(prev, curr, cfg)
+    assert mode.uploads == []
+    if reads is not None:
+        assert mode.reads == reads
+    else:
+        assert 3 <= mode.reads <= 3 * (1 + cfg.max_search_iters // tbbme.LOOP_CHUNK)
+
+
+def test_while_loop_is_the_masked_loop():
+    """Chunks of masked steps give the unchunked loop's state: a count to
+    a per-element limit, capped at `max_iters` inside a chunk."""
+    limit = torch.tensor([0, 1, 5, 13, 30])
+    for max_iters in (0, 4, 9, 100):
+        def body(s):
+            x, it = s
+            go = (x < limit) & (it < max_iters)
+            return torch.where(go, x + 1, x), it + 1
+
+        def cond(s):
+            return (s[0] < limit).any() & (s[1] < max_iters)
+
+        x, it = C.while_loop(cond, body, (torch.zeros(5, dtype=torch.int64),
+                                          torch.zeros((), dtype=torch.int64)), chunk=4)
+        assert torch.equal(x, limit.clamp(max=max_iters)), max_iters
+        assert int(it) % 4 == 0
+
+
+def test_compiled_key_and_cpu_calls():
+    """One entry per (static arguments, shapes, dtypes, devices, other
+    values): the same cfg and shapes reuse a key, a new batch size or cfg
+    makes another.  On the CPU the body runs and no entry is made."""
+    step = tgme.gme_pipeline_batch
+    a = torch.zeros((2, 64, 64), dtype=torch.uint8)
+    b = torch.zeros((3, 64, 64), dtype=torch.uint8)
+    cfg = GMEConfig()
+    assert step.key(a, a, cfg) == step.key(a.clone(), a.clone(), cfg=cfg)
+    assert step.key(a, a) == step.key(a, a, GMEConfig())
+    assert step.key(a, a, cfg) != step.key(b, b, cfg)
+    assert step.key(a, a, cfg) != step.key(a, a, cfg.replace(searching_procedure=1))
+    assert step.key(a, a, cfg) != step.key(a, a.to(torch.int16), cfg)
+    merge = tgme._merge_adaptive
+    out = {"x": torch.zeros(2, 3)}
+    assert merge.key(out, out, torch.ones(2, dtype=torch.bool)) != merge.key(
+        {"y": torch.zeros(2, 3)}, {"y": torch.zeros(2, 3)}, torch.ones(2, dtype=torch.bool))
+    n = len(step.entries)
+    tgme.gme_pipeline_batch(a, a, cfg)
+    assert len(step.entries) == n == 0
+    with pytest.raises(ValueError, match="no arguments named"):
+        C.compiled(lambda x: x, static_argnames=("y",))

@@ -24,6 +24,7 @@ from gme_tpu_torch.models.hierarchical_bbme import hierarchical_wrapper
 from gme_tpu_torch.ops import bbme
 from gme_tpu_torch.ops import cuda_kernels as K
 from gme_tpu_torch.pipeline.results import process_video
+from gme_tpu_torch.utils import compiled
 
 DEFAULT_PATH_KERNELS = ("cost_volume_small_block", "cost_volume_mse_block",
                         "chase_volume", "warp_block_field")
@@ -399,8 +400,11 @@ def test_launch_counts_and_pipeline_equal_cpu(cuda):
     cfg = GMEConfig()
     want = gme_pipeline_batch(torch.from_numpy(prev), torch.from_numpy(curr), cfg)
     K.reset_launch_counts()
+    compiled.reset_replay_counts()
     got = gme_pipeline_batch(torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda), cfg)
-    assert all(K.LAUNCHES[n] > 0 for n in DEFAULT_PATH_KERNELS), K.LAUNCHES
+    # The compiled step's first call launches eagerly, later ones by replays.
+    launches = {n: K.LAUNCHES[n] + compiled.REPLAY_LAUNCHES[n] for n in K.LAUNCHES}
+    assert all(launches[n] > 0 for n in DEFAULT_PATH_KERNELS), launches
     for k in want:
         if k == "psnr":  # a float32 mean over > 2**24: reduction order moves the last bits
             torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-4)
@@ -646,3 +650,137 @@ def test_mesh_across_cards_equals_one_card(cuda, tmp_path):
         process_video(clip, str(tmp_path / name), pcfg.replace(mesh=mesh), device="cuda")
         recs.append(json.load(open(tmp_path / name / "clip" / "psnr_records.json")))
     assert recs[0] == recs[1] and len(recs[0]) == 4
+
+
+# ---------------------------------------------------------------------------
+# Compiled entries (captured CUDA graphs) against their eager bodies
+# ---------------------------------------------------------------------------
+
+def _launched():
+    return {n: K.LAUNCHES[n] + compiled.REPLAY_LAUNCHES[n] for n in K.LAUNCHES}
+
+
+def _compiled_equals_eager(fn, eager, calls, keep=None):
+    """`fn` (compiled) over `calls`, a list of argument tuples on the card:
+    each call equal to `eager` bit for bit with as many launches of each
+    kernel, and the first call's outputs unchanged by the later calls."""
+    outs = []
+    for args in calls:
+        K.reset_launch_counts()
+        compiled.reset_replay_counts()
+        want = eager(*args)
+        eager_launches = _launched()
+        fn(*args)  # captures on the first call of a key
+        K.reset_launch_counts()
+        compiled.reset_replay_counts()
+        got = fn(*args)
+        assert _launched() == eager_launches, (_launched(), eager_launches)
+        assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES  # replays only
+        flat_w, _ = compiled._flatten(want)
+        flat_g, _ = compiled._flatten(got)
+        assert len(flat_w) == len(flat_g)
+        for w, g in zip(flat_w, flat_g):
+            assert w.dtype == g.dtype and torch.equal(w, g)
+        outs.append(([t.clone() for t in flat_g], flat_g))
+    for kept, returned in outs:
+        assert all(torch.equal(a, b) for a, b in zip(kept, returned))
+    return outs
+
+
+@pytest.mark.parametrize("cfg", [GMEConfig(), GMEConfig(searching_procedure=0),
+                                 GMEConfig(searching_procedure=1),
+                                 GMEConfig(searching_procedure=2), GMEConfig(volume_radius=64)])
+def test_compiled_step_equals_eager(cuda, cfg):
+    from gme_tpu_torch.models.gme import gme_pipeline_batch_eager
+
+    calls = []
+    for seed, shift in ((4, (3, -5)), (5, (-6, 9))):
+        prev, curr = _pan_pair(seed, 100, 150, shift)
+        calls.append((prev.to(cuda), curr.to(cuda), cfg))
+    _compiled_equals_eager(gme_pipeline_batch, gme_pipeline_batch_eager, calls)
+    entry = next(e for k, e in gme_pipeline_batch.entries.items() if k[0] == (("cfg", cfg),))
+    assert len(entry.graphs) == (7 if cfg.searching_procedure == 2 else 1)
+    assert (entry.host_reads > 0) == (cfg.searching_procedure == 2)
+
+
+@pytest.mark.parametrize("sp,impl,max_iters", [
+    (0, "auto", 4096), (1, "volume", 4096), (2, "volume", 4096), (2, "volume", 3),
+    (3, "volume", 4096), (3, "gather", 4096), (2, "gather", 11),
+])
+def test_compiled_motion_field_equals_eager(cuda, sp, impl, max_iters):
+    kw = dict(block_size=12, search_window=8, searching_procedure=sp, pnorm_distance=MAE,
+              max_iters=max_iters, search_impl=impl, return_diagnostics=True)
+    calls = []
+    for seed, shift in ((6, (3, -5)), (7, (9, 4))):
+        prev, curr = _pan_pair(seed, 72, 120, shift)
+        calls.append((prev.to(cuda), curr.to(cuda)))
+    _compiled_equals_eager(lambda p, c: bbme.get_motion_field_jit(p, c, **kw),
+                           lambda p, c: bbme.get_motion_field(p, c, **kw), calls)
+
+
+def test_compiled_small_ops_and_adaptive_equal_eager(cuda):
+    import gme_tpu_torch as G
+    from gme_tpu_torch.models import gme as tgme
+
+    prev, curr = _pan_pair(8, 100, 150, (2, 3))
+    prev, curr = prev.to(cuda), curr.to(cuda)
+    params = torch.tensor([[2.5, 0.01, -0.02, -1.5, 0.003, 0.01]] * 2, device=cuda)
+    field = G.get_motion_field_affine((6, 9), params)
+    for fn, eager, args in (
+        (G.get_pyramids_jit, G.get_pyramids, (prev, 3)),
+        (G.get_motion_field_affine_jit, G.get_motion_field_affine, ((6, 9), params)),
+        (G.compensate_frame_jit, G.compensate_frame, (prev, field)),
+        (G.psnr_jit, G.psnr, (prev, curr)),
+        (G.global_motion_estimation_jit, G.global_motion_estimation, (prev, curr)),
+    ):
+        _compiled_equals_eager(fn, eager, [args])
+    frames = torch.from_numpy(_alternating_clip()).to(cuda)
+    a, b = frames[:-1], frames[1:]
+    got = tgme.gme_pipeline_batch_adaptive(a, b)
+    want = tgme.gme_pipeline_batch_eager(a, b)
+    for k in want:
+        if k != "volume_edge_hits":
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_compiled_direct_level_equals_eager(cuda):
+    from gme_tpu_torch.models import direct
+
+    img = torch.from_numpy(_alternating_clip(n=2)[0]).to(cuda)
+    true = torch.tensor([1.5, 0.01, 0, -1.0, 0, 0.01], device=cuda)
+    curr = direct.warp_backward(img, true, "affine")
+    sched = direct._schedule(0.01, 40).to(cuda)
+    p0 = direct.identity_params("affine", cuda)
+    args = (p0, img.float(), curr, sched, "affine", 160.0)
+    _compiled_equals_eager(direct._adam_level_jit, direct._adam_level, [args])
+
+
+def test_compiled_f32_fit_equals_eager(cuda):
+    """The f32 fit (float fields, 1080p) captures: its batched solve reads
+    nothing back."""
+    from gme_tpu_torch.ops import affine
+
+    rng = np.random.RandomState(9)
+    field = torch.from_numpy(rng.randn(3, 9, 12, 2).astype(np.float32) * 4).to(cuda)
+    mask = torch.from_numpy(rng.rand(3, 9, 12) > 0.3).to(cuda)
+    fit = compiled.compiled(affine._fit_normal_equations_f32,
+                            static_argnames=("frame_shape", "coord_stride"))
+    _compiled_equals_eager(fit, affine._fit_normal_equations_f32,
+                           [(field, mask, (144, 192), 4), (field * 2, ~mask, (144, 192), 4)])
+    assert len(fit.entries) == 1
+    fit.clear()
+    assert not fit.entries and fit.last_entry is None
+
+
+def test_capture_of_a_host_read_raises(cuda):
+    """A function that reads a tensor on the host cannot be captured: the
+    call raises, naming the function; it does not run eagerly instead."""
+    def reads(x):
+        return x * float(x.sum().item())
+
+    fn = compiled.compiled(reads)
+    with pytest.raises(compiled.CaptureError, match="reads"):
+        fn(torch.ones(4, device=cuda))
+    assert not fn.entries
+    assert torch.equal(torch.ones(2, device=cuda) + 1, torch.full((2,), 2.0, device=cuda))
+

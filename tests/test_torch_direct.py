@@ -8,9 +8,11 @@ JAX on the same numpy inputs:
 - warp_forward, the parameter conversions and `project_params`: bit for
   bit, collisions and huge and NaN parameters included (XLA's float -> int
   convert saturates and maps NaN to 0);
-- the motion models, `bilinear_sample` and `warp_backward`: within a few
-  float32 ulps, because XLA:CPU contracts a*b + c into fused multiply-adds
-  (ROADMAP queue C7);
+- `bilinear_sample`, `warp_backward` and the warped frame of
+  `photometric_loss`: bit for bit, XLA:CPU's fused multiply-adds emulated
+  by `ops.affine._fma` (exact on FMA hosts; ROADMAP queue C7); the motion
+  models alone within an ulp, since which products XLA fuses there depends
+  on the fusion around them;
 - `photometric_loss` and its gradient, at the identity (every border pixel
   on a clip bound, where XLA gives each side half the gradient) and at a
   random point: relative 1e-5, the sums run in another order;
@@ -39,6 +41,7 @@ from gme_tpu_torch.models.direct import (
 )
 from gme_tpu_torch.ops.metrics import psnr
 from test_direct import _smooth_image
+from test_torch_ops import _host_has_fma
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -52,11 +55,18 @@ def _one_thread():
 
 
 MODELS = (("perspective", 8), ("affine", 6))
-# Absolute tolerances of the FMA-contracted float paths (ROADMAP queue C7):
-# coordinates below 128 (float32 ulp 7.6e-6), pixel values below 256 (ulp
-# 1.5e-5); warp_backward multiplies a coordinate ulp by the image gradient.
-COORD_ATOL, SAMPLE_ATOL, WARP_ATOL = 1.6e-5, 1e-4, 1e-3
+# The motion models alone: which products XLA fuses depends on the fusion
+# around them (ROADMAP queue C7); coordinates below 128 (float32 ulp 7.6e-6).
+COORD_ATOL = 1.6e-5
 GRAD_RTOL = 1e-5
+# The FMA-emulated float paths are bit-equal where XLA:CPU emits FMAs, on
+# an x86 host with FMA (`test_torch_ops._host_has_fma`).  Elsewhere XLA
+# rounds each product: coordinates below 128 (ulp 7.6e-6), pixel values
+# below 256 (ulp 1.5e-5), and warp_backward multiplies a coordinate ulp by
+# the image gradient.
+_FMA = _host_has_fma()
+SAMPLE_ATOL = 0.0 if _FMA else 1e-4
+WARP_ATOL = 0.0 if _FMA else 1e-3
 
 
 def _t(a):
@@ -228,8 +238,8 @@ def test_bilinear_sample_matches_jitted_jax():
 
 @pytest.mark.parametrize("model,n", MODELS)
 def test_warps_match_jitted_jax(model, n):
-    """warp_backward within WARP_ATOL; warp_forward bit for bit, under
-    collisions (all zeros), huge and NaN parameters."""
+    """warp_backward bit for bit (on FMA hosts); warp_forward bit for bit,
+    under collisions (all zeros), huge and NaN parameters."""
     rng = np.random.RandomState(3)
     img = _smooth_image(48, 64)
     backward = jax.jit(J.warp_backward, static_argnums=2)
@@ -264,6 +274,29 @@ def test_photometric_loss_and_gradient_match_jax(model, n):
         want_g = np.array(want_g)
         np.testing.assert_allclose(g.numpy(), want_g, rtol=0,
                                    atol=GRAD_RTOL * float(np.abs(want_g).max()))
+
+
+@pytest.mark.parametrize("model,n", MODELS)
+@pytest.mark.parametrize("coord_scale", [64.0, 1.0])
+def test_photometric_warp_matches_jitted_jax(model, n, coord_scale):
+    """The loss's warped frame (normalised grid, model, bilinear sample)
+    bit for bit: the loss differs only by the order of its sum."""
+    rng = np.random.RandomState(6)
+    prev = _smooth_image(48, 64)
+    H, W = prev.shape
+
+    def warped(p, img):
+        xs = jax.lax.broadcasted_iota(jnp.float32, (H, W), 0) * (1.0 / coord_scale)
+        ys = jax.lax.broadcasted_iota(jnp.float32, (H, W), 1) * (1.0 / coord_scale)
+        x1, y1 = J._model_coords(model, p, xs, ys)
+        return J.bilinear_sample(img, x1 * coord_scale, y1 * coord_scale)
+
+    for p in (_random_params(rng, model, n, 0.01), _random_params(rng, model, n, 0.2)):
+        want = np.array(jax.jit(warped)(jnp.asarray(p), jnp.asarray(prev, jnp.float32)))
+        xs, ys = T._grid(H, W, "cpu")
+        x1, y1 = T._model_coords(model, _t(p), xs * (1.0 / coord_scale), ys * (1.0 / coord_scale))
+        got = bilinear_sample(_t(prev).float(), x1 * coord_scale, y1 * coord_scale).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=WARP_ATOL)
 
 
 @pytest.mark.parametrize("model,n", MODELS)
