@@ -26,12 +26,17 @@ Then it reads the latency-bound kernels at the default step's 720p shapes
 the package has it, and `warp_block_field`) and the launch floor (a
 one-element fill) three ways: CUDA events around a loop of wrapper calls,
 the device's own duration from torch.profiler, and the wrapper's host time
-a call.  Then it runs the volume kernels at their paths' shapes while
+a call.  Then `[stages]`: the default 720p step at batch 24 stage by stage
+(`gme_tpu_torch.tools.profile_stages`, `2 * --reps` timed replays a
+stage), with the sum of its disjoint stages against the compiled step's
+busy time.  Then it runs the volume kernels at their paths' shapes while
 nvidia-smi samples the SM clock: the packed-word `cost_volume_rowoffset` at
-the three-step (bs 12, D 51) and bs-20 diamond (D 65) shapes, and the
-tensor-core `cost_volume_cross` in both modes, each against the bound of
-`chip_smoke.bound` (int32 operations or bytes), with its device time from
-torch.profiler.  Where the toolkit has cuobjdump, it writes the SASS of the
+the three-step (bs 12, D 51), 2D-log/diamond (bs 12, D 65) and bs-20
+diamond (D 65) shapes, the tensor-core `cost_volume_cross` in both modes at
+level 2 and level 1 of the radius-64 step, and `cost_volume_mse_block` at
+level 1 of the default step, each against the bound of `chip_smoke.bound`
+(int32 operations or bytes), with its device time from torch.profiler and
+the wrapper's host time a call.  Where the toolkit has cuobjdump, it writes the SASS of the
 row-offset kernel's three-step instantiation (`<3, 0>`: three words a block
 row, MAE) to chiprun_out/ and prints its instruction mix.  The last line is
 one JSON object with every number printed.  It imports neither `jax` nor
@@ -228,12 +233,34 @@ def main():
     result["latency"] = latency_bound_kernels(torch, K, bbme, prev, curr, cfg, dev, card)
     torch.cuda.empty_cache()
 
+    # The default step stage by stage (gme_tpu_torch.tools.profile_stages).
+    from gme_tpu_torch.tools import profile_stages
+
+    for fn in (gme_tpu_torch.gme_pipeline_batch, bbme.get_motion_field_jit):
+        fn.clear()
+    torch.cuda.empty_cache()
+    stages = profile_stages.run(720, 1280, BATCH_720P, dev, args.reps * 2,
+                                emit=lambda line: print(f"[stages] {line}", flush=True))
+    stages.pop("outputs")
+    result["stages"] = stages
+    profile_stages.clear()
+    gme_tpu_torch.gme_pipeline_batch.clear()
+    torch.cuda.empty_cache()
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     R3 = bbme.threestep_search_radius(CLI_BS, CLI_SW)
     p3, c3 = bbme.volume_inputs(sp_prev, sp_curr, CLI_BS, R3)
     p20, c20 = bbme.volume_inputs(prev[:BS20_BATCH], curr[:BS20_BATCH], 20, BS20_RADIUS)
     D20 = 2 * BS20_RADIUS + 1
     p64, c64 = bbme.volume_inputs(sp_prev, sp_curr, cfg.block_size, 64)
+    # Level 1 (the half-size pyramid level) of the default step and of the
+    # R64 step, and the 2D-log/diamond searches' volume (D 65).
+    lvl1_prev, lvl1_curr = (gme_tpu_torch.get_pyramids(x, cfg.pyramid_levels)[1]
+                            for x in (prev, curr))
+    p1, c1 = bbme.volume_inputs(lvl1_prev, lvl1_curr, cfg.block_size, cfg.volume_radius)
+    p164, c164 = bbme.volume_inputs(lvl1_prev[:BATCH_SEARCH], lvl1_curr[:BATCH_SEARCH],
+                                    cfg.block_size, 64)
+    p65, c65 = bbme.volume_inputs(sp_prev, sp_curr, CLI_BS, 32)
     shapes = {
         "cost_volume_rowoffset": (p3, c3, CLI_BS, 2 * R3 + 1,
                                   lambda: K.cost_volume_rowoffset(p3, c3, CLI_BS, 2 * R3 + 1, MAE)),
@@ -244,21 +271,31 @@ def main():
         "cost_volume_cross ssd": (p64, c64, cfg.block_size, 129,
                                   lambda: K.cost_volume_cross(p64, c64, cfg.block_size, 129,
                                                               ssd=True)),
+        "cost_volume_mse_block lvl1": (p1, c1, cfg.block_size, 65,
+                                       lambda: K.cost_volume_mse_block(p1, c1, cfg.block_size, 65)),
+        "cost_volume_rowoffset D65": (p65, c65, CLI_BS, 65,
+                                      lambda: K.cost_volume_rowoffset(p65, c65, CLI_BS, 65, MAE)),
+        "cost_volume_cross lvl1": (p164, c164, cfg.block_size, 129,
+                                   lambda: K.cost_volume_cross(p164, c164, cfg.block_size, 129)),
+        "cost_volume_cross ssd lvl1": (p164, c164, cfg.block_size, 129,
+                                       lambda: K.cost_volume_cross(p164, c164, cfg.block_size,
+                                                                   129, ssd=True)),
     }
     for kernel, (p, c, bs, D, fn) in shapes.items():
         ms = cuda_ms(torch, fn, 10)
         dev_ms, _ = device_ms(torch, fn, 10)
+        us = host_us(torch, fn, 10)
         mhz, max_mhz = clocked(torch, fn)
         args = (p, c, bs, D) + ((MAE,) if kernel.startswith("cost_volume_rowoffset") else ())
         bound_ms, by, binds = bound(K, kernel.split()[0], args)
-        rec = {"shape": [list(p.shape), bs, D], "ms": ms, "device_ms": dev_ms,
+        rec = {"shape": [list(p.shape), bs, D], "ms": ms, "device_ms": dev_ms, "host_us": us,
                "sm_mhz_under_load": mhz, "sm_mhz_max": max_mhz, "sms": sms, "bound_ms": bound_ms,
                "bound_by": by, "share_of_bound": bound_ms / ms, "device_share": bound_ms / dev_ms}
         if kernel.startswith("cost_volume_rowoffset"):
             rec["terms_per_s"] = p.numel() * D * D / (dev_ms * 1e-3)
         result["kernels"][kernel] = rec
         print(f"[kernel] {kernel} B={p.shape[0]} {tuple(p.shape[1:])} bs={bs} D={D}: {ms:.4f} ms "
-              f"(events), device {dev_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} ({binds}), "
+              f"(events), device {dev_ms:.4f} ms, host {us:.1f} us a call; bound {bound_ms:.4f} ms by {by} ({binds}), "
               f"{bound_ms / ms:.3f} of it, {bound_ms / dev_ms:.3f} of the device time; SM clock "
               f"under load {mhz:.0f} MHz (max {max_mhz:.0f}), {sms} SMs ({card})", flush=True)
     mix = sass_mix(K)

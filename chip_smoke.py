@@ -52,10 +52,13 @@ path through the entry points a user calls:
   bit, `cli direct` in its own process;
 - meshes on the card, every slot naming it: data parallel on a 24-pair
   720p batch, the spatial step (space 2 and 4; three-step and exhaustive at
-  space 4) on one pair, each counted and equal to the 1x1 step with as many
-  launches of each kernel, and `process_video` at data=2,space=2; then two
-  processes of the command line on a gloo process group, their merged
-  records equal to the single-process run's.
+  space 4) on one pair, its eager band program and its compiled one (one
+  CUDA graph) each counted and equal to the 1x1 step with as many launches
+  of each kernel, the compiled one against its eager body over two calls
+  on different frames with host ms, busy ms and idle share beside the 1x1
+  step's (rows to chiprun_out/mesh.json), and `process_video` at
+  data=2,space=2; then two processes of the command line on a gloo process
+  group, their merged records equal to the single-process run's.
 
 Each 720p path runs with the launch counts set to 0 just before it and read
 just after (the wrappers' counts and the CUDA graph replays', which call no
@@ -914,15 +917,18 @@ def direct_phase(torch, card, dev, work):
 def mesh_phase(torch, K, card, launch_log, captured, dev, work):
     """Meshes on one card, the slots all naming it: data parallel and the
     spatial step (space 2 and 4; three-step and exhaustive at space 4) at
-    720p against the 1x1 step, each spatial run counted, and the driver
-    with a 2x2 mesh against the 1x1 driver.  On one card a mesh runs its
-    slots one after another: the times are the band program's cost."""
+    720p against the 1x1 step, each spatial run counted eager and compiled
+    (`compiled_case`: the compiled band program against its eager body),
+    and the driver with a 2x2 mesh against the 1x1 driver.  On one card a
+    mesh runs its slots one after another: the times are the band
+    program's cost."""
     import gme_tpu_torch
     from gme_tpu_torch.config import GMEConfig, MeshConfig, PipelineConfig
     from gme_tpu_torch.io.video import write_y4m
     from gme_tpu_torch.parallel.data_parallel import make_sharded_pipeline
     from gme_tpu_torch.parallel.mesh import make_mesh
-    from gme_tpu_torch.parallel.spatial import make_spatial_pipeline
+    from gme_tpu_torch.parallel import spatial as SP
+    from gme_tpu_torch.parallel.spatial import make_spatial_pipeline, make_spatial_pipeline_eager
     from gme_tpu_torch.pipeline.results import process_video
 
     H, W = DRIVER_HW
@@ -950,26 +956,59 @@ def mesh_phase(torch, K, card, launch_log, captured, dev, work):
             (4, cfg.replace(searching_procedure=1), "three-step"),
             (4, cfg.replace(searching_procedure=0), "exhaustive")]
     p1, c1 = prev[:1], curr[:1]
+    seed1 = synthetic_pan(2, H, W, PAN_STEP, seed=1)
+    p2, c2 = (torch.from_numpy(seed1[i:i + 1]).to(dev) for i in (0, 1))
+    rows = {}
     for space, scfg, name in runs:
         path = f"mesh spatial s{space} {name}"
         single = f"mesh 1x1 {name}"
-        step = make_spatial_pipeline(make_mesh(1, space, [dev] * space), scfg, H, W)
+        mesh = make_mesh(1, space, [dev] * space)
+        step = make_spatial_pipeline(mesh, scfg, H, W)
+        eager = make_spatial_pipeline_eager(mesh, scfg, H, W)
         kernels = MESH_KERNELS[name]
-        got = counted(torch, K, path, lambda: step(p1, c1), kernels, launch_log, captured)
+        # The eager band program counted first: it leaves each kernel's
+        # arguments at the band shapes for [paths].
+        got = counted(torch, K, f"{path} eager", lambda: eager(p1, c1), kernels, launch_log,
+                      captured)
         want = counted(torch, K, single,
                        lambda: gme_tpu_torch.gme_pipeline_batch_eager(p1, c1, scfg),
                        kernels, launch_log, captured)
-        same(got, want, path, exact=True)
-        banded = {k: v for k, v in launch_log[path].items() if k != "warp_block_field"}
+        same(got, want, f"{path} eager", exact=True)
+        banded = {k: v for k, v in launch_log[f"{path} eager"].items() if k != "warp_block_field"}
         flat = {k: v for k, v in launch_log[single].items() if k != "warp_block_field"}
         check(banded == flat, f"{path}: launches {banded} != the 1x1 step's {flat}")
-        _, ms, _ = timed(torch, lambda: step(p1, c1))
-        _, ms1, _ = timed(torch, lambda: gme_tpu_torch.gme_pipeline_batch(p1, c1, scfg))
-        phase("mesh", f"spatial {name} space={space} on one card, 1 pair 720p == the 1x1 step "
-              f"(every output bit for bit, PSNR included); launches {launch_log[path]} == the "
-              f"1x1 step's but warp_block_field (a plain gather there); step {ms * 1e3:.1f} ms "
-              f"against {ms1 * 1e3:.1f} ms for the 1x1 step ({card}; one card runs the bands in "
-              "turn: the band program's cost, no speed-up)")
+        # The compiled band program (every slot this card): equal to its eager
+        # body over two calls on different frames, as many launches a replay.
+        compiled_case(torch, K, card, f"spatial s{space} {name} B=1", step, eager,
+                      [(p1, c1), (p2, c2)], kernels, rows,
+                      chain=lambda: ([SP.spatial_program_jit.last_entry], 0))
+        counted(torch, K, path, lambda: step(p1, c1), kernels, launch_log, captured)
+        check(launch_log[path] == launch_log[f"{path} eager"],
+              f"{path}: a replay launched {launch_log[path]}, the eager body "
+              f"{launch_log[f'{path} eager']}")
+        for p, c in ((p1, c1), (p2, c2)):
+            same(step(p, c), gme_tpu_torch.gme_pipeline_batch(p, c, scfg), path, exact=True)
+        one_ms, one_busy, one_items = host_and_busy(
+            torch, lambda: gme_tpu_torch.gme_pipeline_batch(p1, c1, scfg))
+        row = rows[f"spatial s{space} {name} B=1"]
+        row.update(one_host_ms=one_ms, one_busy_ms=one_busy, one_device_items=one_items)
+
+        def ms(v):
+            return "not measured" if v is None else f"{v:.3f}"
+
+        phase("mesh", f"spatial {name} space={space} on one card, 1 pair 720p: the compiled band "
+              f"program ({row['graphs']} graph, {row['host_reads']} host reads) == its eager body "
+              f"== the 1x1 step (every output bit for bit, PSNR included, seeds 0 and 1); "
+              f"launches a replay {launch_log[path]} == the eager body's == the 1x1 step's but "
+              f"warp_block_field (a plain gather there); host ms compiled "
+              f"{row['compiled_host_ms']:.3f} eager {row['eager_host_ms']:.3f} 1x1 {one_ms:.3f}; "
+              f"busy ms compiled {ms(row['compiled_busy_ms'])} eager {ms(row['eager_busy_ms'])} "
+              f"1x1 {ms(one_busy)}; idle compiled {ms(row['compiled_idle'])} eager "
+              f"{ms(row['eager_idle'])}; device activities a call compiled "
+              f"{row['compiled_device_items']} 1x1 {one_items} ({card}; one card runs the bands "
+              "in turn: no speed-up)")
+    SP.spatial_program_jit.clear()
+    torch.cuda.empty_cache()
     del prev, curr
 
     clip = os.path.join(work, "mesh720.y4m")
@@ -984,9 +1023,13 @@ def mesh_phase(torch, K, card, launch_log, captured, dev, work):
           and max(abs(got[k] - want[k]) for k in want) <= 1e-4
           and meshed["volume_edge_hits"] == flat["volume_edge_hits"],
           f"process_video 2x2: records differ from the 1x1 run ({len(got)} records)")
-    phase("mesh", f"process_video mesh data=2,space=2 on {[str(dev)] * 4}: {len(got)} 720p "
-          f"records == the 1x1 run (max diff {max(abs(got[k] - want[k]) for k in want)} dB); "
-          f"wall {meshed['wall_s']:.3f} s against {flat['wall_s']:.3f} s ({card})")
+    phase("mesh", f"process_video mesh data=2,space=2 on {[str(dev)] * 4} (the compiled band "
+          f"program): {len(got)} 720p records == the 1x1 run (max diff "
+          f"{max(abs(got[k] - want[k]) for k in want)} dB); wall {meshed['wall_s']:.3f} s "
+          f"against {flat['wall_s']:.3f} s ({card})")
+    rows["driver 2x2 wall_s"], rows["driver 1x1 wall_s"] = meshed["wall_s"], flat["wall_s"]
+    with open(os.path.join(HERE, "chiprun_out", "mesh.json"), "w") as f:
+        json.dump({"card": card, "rows": rows}, f, indent=1)
     return clip, want
 
 
@@ -1050,7 +1093,8 @@ def busy_intervals(torch, prof):
 def host_and_busy(torch, fn, reps=COMPILED_REPS):
     """(median host ms of `reps` synchronised calls, device busy ms of one
     profiled call or None where the profiler recorded no device activity in
-    PROFILE_ATTEMPTS windows)."""
+    PROFILE_ATTEMPTS windows, the number of device activities (kernels,
+    copies, fills) in that call)."""
     fn()
     torch.cuda.synchronize()
     walls = []
@@ -1060,7 +1104,7 @@ def host_and_busy(torch, fn, reps=COMPILED_REPS):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    busy = None
+    busy, items = None, 0
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
@@ -1068,10 +1112,11 @@ def host_and_busy(torch, fn, reps=COMPILED_REPS):
         us, _ = busy_intervals(torch, prof)
         if us > 0:
             busy = us / 1e3
+            items = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
             break
         print(f"[profiler] window {attempt} of {PROFILE_ATTEMPTS} recorded no device activity",
               file=sys.stderr, flush=True)
-    return float(np.median(walls)) * 1e3, busy
+    return float(np.median(walls)) * 1e3, busy, items
 
 
 def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=None):
@@ -1116,9 +1161,9 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
     check(not missing, f"[compiled] {name}: kernels of the path did not launch: {missing}")
     entries, own_reads = chain() if chain else ([fn.last_entry], 0)
     args = calls[-1]
-    eager_ms, eager_busy = host_and_busy(torch, lambda: eager(*args))
+    eager_ms, eager_busy, eager_items = host_and_busy(torch, lambda: eager(*args))
     torch.cuda.reset_peak_memory_stats()
-    comp_ms, comp_busy = host_and_busy(torch, lambda: fn(*args))
+    comp_ms, comp_busy, comp_items = host_and_busy(torch, lambda: fn(*args))
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.memory_reserved()
 
@@ -1128,6 +1173,7 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
     row = {"eager_host_ms": eager_ms, "eager_busy_ms": eager_busy,
            "eager_idle": idle(eager_ms, eager_busy), "compiled_host_ms": comp_ms,
            "compiled_busy_ms": comp_busy, "compiled_idle": idle(comp_ms, comp_busy),
+           "eager_device_items": eager_items, "compiled_device_items": comp_items,
            "graphs": sum(len(e.graphs) for e in entries),
            "host_reads": own_reads + sum(e.host_reads for e in entries),
            "launches": {k: v for k, v in replayed.items() if v},
@@ -1828,13 +1874,15 @@ def run(torch):
             torch.cuda.synchronize()
             err = agree(kernel, getattr(K, kernel)(*args, **mode), want)
             del want
-            ms = cuda_ms(torch, lambda: getattr(K, kernel)(*args, **mode), PLAIN_REPS)
+            run_kernel = lambda: getattr(K, kernel)(*args, **mode)  # noqa: E731
+            ms = cuda_ms(torch, run_kernel, PLAIN_REPS)
+            call_us = host_us(torch, run_kernel, PLAIN_REPS)
             floor, _ = floor_of(kernel, args)
             bound_ms, bound_by, binds = bound(K, kernel, args, floor)
             phase("paths", f"{kernel} {key[1:]}{' ' + str(mode) if mode else ''}: bit-equal=True "
-                  f"max_abs_err={err} kernel {ms:.4f} ms; plain {start.elapsed_time(end):.4f} ms "
-                  f"(one call, events); bound {bound_ms:.4f} ms by {bound_by}, "
-                  f"{binds} binds, share {max(bound_ms, floor) / ms:.4f} ({card})")
+                  f"max_abs_err={err} kernel {ms:.4f} ms, host {call_us:.1f} us a call; plain "
+                  f"{start.elapsed_time(end):.4f} ms (one call, events); bound {bound_ms:.4f} ms "
+                  f"by {bound_by}, {binds} binds, share {max(bound_ms, floor) / ms:.4f} ({card})")
         del args
     for k in K.LAUNCHES:
         check("ms" in records[k], f"{k}: no main-path shape was timed")

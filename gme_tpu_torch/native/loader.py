@@ -1,11 +1,11 @@
 """ctypes bindings to the native host runtime, built at first use.
 
-The same C ABI as `gme_tpu/native/loader.py`: y4m probe and decode, the
-optional libav codec decode, `gme_write_png` and the asynchronous PNG
-writer pool.  The library is compiled by `g++` from the JAX package's
-source, `gme_tpu/native/gme_native.cpp`, read as a file (nothing of
-`gme_tpu` is imported or copied), into
-`gme_tpu_torch/_build/libgme_native_<hash>.so`, keyed by a hash of the
+The same C ABI as the JAX package's native loader: y4m probe and decode,
+the optional libav codec decode, `gme_write_png` and the asynchronous PNG
+writer pool.  The port keeps its own copy of the C++ source,
+`gme_tpu_torch/native/gme_native.cpp` (byte for byte the JAX package's),
+so that a tree holding only `gme_tpu_torch/` builds it.  `g++` compiles it
+into `gme_tpu_torch/_build/libgme_native_<hash>.so`, keyed by a hash of the
 source and flags and put in place with `os.replace`, so processes that
 build at once do not clash.  libav is linked only where its headers exist.
 
@@ -28,7 +28,7 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "gme_tpu", "native", "gme_native.cpp")
+SOURCE = os.path.join(_PKG_DIR, "native", "gme_native.cpp")
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -194,12 +194,17 @@ def compute_cost_volume(
     every offset in [-R, R]^2, entry k = (dr + R) * D + (dc + R); +inf where
     the candidate block leaves the frame (reference bbme.py:157-162)."""
     _, H, W = previous.shape
+    prev_crop, curr_pad = volume_inputs(previous, current, block_size, radius)
+    cost = _dfd_cost_volume(prev_crop, curr_pad, block_size, 2 * radius + 1, pnorm)
+    return mask_volume_(cost, H, W, block_size, radius)
+
+
+def mask_volume_(cost: torch.Tensor, H: int, W: int, block_size: int, radius: int) -> torch.Tensor:
+    """+inf, in place, in the entries of a (B, nbh, nbw, D*D) volume of an
+    (H, W) frame whose candidate block leaves the frame; returns `cost`."""
     bs, R = block_size, radius
-    nbh, nbw = H // bs, W // bs
-    D = 2 * R + 1
-    prev_crop, curr_pad = volume_inputs(previous, current, bs, R)
-    cost = _dfd_cost_volume(prev_crop, curr_pad, bs, D, pnorm)
-    offsets = torch.arange(-R, R + 1, dtype=torch.int32, device=previous.device)
+    nbh, nbw, D = cost.shape[1], cost.shape[2], 2 * radius + 1
+    offsets = torch.arange(-R, R + 1, dtype=torch.int32, device=cost.device)
     valid_r = _offset_mask(nbh, bs, H, offsets)
     valid_c = _offset_mask(nbw, bs, W, offsets)
     mask = valid_r[:, None, :, None] & valid_c[None, :, None, :]  # (nbh, nbw, D, D)
@@ -709,6 +714,18 @@ def diamond_walk_volume(
     R - 1), the certificate that a larger radius could not change the result
     when zero.  With a (B, nbh, nbw) bool `count_mask` only its cells count
     (a row band's padding rows do not)."""
+    match, og, edge_hits = chase_walk(volume, origins, H, W, block_size, radius, max_iters,
+                                      count_mask)
+    return sdsp_pass(volume, og, match, H, W, block_size, radius), edge_hits
+
+
+def chase_walk(
+    volume: torch.Tensor, origins: torch.Tensor, H: int, W: int, block_size: int, radius: int,
+    max_iters: int = 4096, count_mask: torch.Tensor = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The large-diamond walk of `diamond_walk_volume` on the volume (the
+    chase kernel): the (B, nbh, nbw, 2) fixpoint positions, the origins
+    broadcast to them, and the (B,) int32 edge hits."""
     bs, R = block_size, radius
     D = 2 * R + 1
     lead = volume.shape[:-1]
@@ -727,13 +744,18 @@ def diamond_walk_volume(
         touched = touched & count_mask
     edge_hits = touched.reshape(B, -1).sum(dim=1, dtype=torch.int32)
     match = torch.stack([og[..., 0] + o // D - R, og[..., 1] + o % D - R], dim=-1)
+    return match, og, edge_hits
 
-    # Single SDSP pass (reference bbme.py:515-529) through the volume.
+
+def sdsp_pass(volume: torch.Tensor, og: torch.Tensor, match: torch.Tensor, H: int, W: int,
+              block_size: int, radius: int) -> torch.Tensor:
+    """The single small-diamond pass (reference bbme.py:515-529) through the
+    volume around the walk's fixpoints `match`: the best positions."""
     sdsp = _offset_table(SDSP, volume.device)
-    pos = _clamped(match[..., None, :] + sdsp, H, W, bs)
-    cost = volume_evaluator(volume, og, R)(pos, torch.ones(pos.shape[:-1], dtype=torch.bool,
-                                                             device=volume.device))
-    return _take_best(pos, cost), edge_hits
+    pos = _clamped(match[..., None, :] + sdsp, H, W, block_size)
+    cost = volume_evaluator(volume, og, radius)(
+        pos, torch.ones(pos.shape[:-1], dtype=torch.bool, device=volume.device))
+    return _take_best(pos, cost)
 
 
 def diamond_search(

@@ -27,6 +27,15 @@ pair dimension for the volume kernels and the chase (`_by_device`); every
 band has the same (Tmax*bs, nbw*bs) shape (`_band_tmax`), so a level is one
 launch of each kernel per device, as in the single-device step.
 
+The JAX package jits its sharded step.  Here the lockstep program
+(`spatial_program`) is compiled (`utils.compiled`: one CUDA graph per
+mesh, config, frame shape and device) when every slot of the mesh names
+one device, as on one card; it reads nothing back to the host and makes no
+tensor from host data.  A mesh whose slots name several cards runs it op
+by op (`make_spatial_pipeline_eager`): a compiled function takes tensors
+on one device, and a graph per card would split at each of the step's
+collectives (ROADMAP A16b).
+
 The searches use the volume engine, as in the JAX package; compare with a
 single-device step under `search_impl="volume"`.
 """
@@ -61,6 +70,7 @@ from gme_tpu_torch.ops.bbme import (
 from gme_tpu_torch.ops.metrics import frame_difference, psnr_from_sse, sse
 from gme_tpu_torch.ops.pyramid import _taps_stride2
 from gme_tpu_torch.parallel.mesh import SPACE_AXIS, Mesh
+from gme_tpu_torch.utils.compiled import compiled
 
 Bands = List[torch.Tensor]  # S tensors (B, rows, ...), band k on its slot's device
 
@@ -174,6 +184,13 @@ def _band_rows(k: int, lh: int, H: int, bs: int) -> Tuple[int, int]:
     return -(-(k * lh) // bs), min(-(-((k + 1) * lh) // bs), H // bs)
 
 
+def _band_origins(gb0s: List[int], device) -> torch.Tensor:
+    """(len(gb0s),) int32 first block rows of bands, filled on `device`:
+    a tensor built from a host list would be a copy from the host, which a
+    CUDA graph capture cannot hold."""
+    return torch.cat([torch.full((1,), g, dtype=torch.int32, device=device) for g in gb0s])
+
+
 def _band_tmax(H: int, space: int, bs: int) -> int:
     """Most block rows owned by any band."""
     lh = H // space
@@ -213,7 +230,7 @@ def _stacked_origins(gb0: torch.Tensor, B: int, Tmax: int, nbw: int, bs: int) ->
     gi = (gb0[:, None] + torch.arange(Tmax, dtype=torch.int32, device=gb0.device)) * bs
     gj = torch.arange(nbw, dtype=torch.int32, device=gb0.device) * bs
     og = torch.stack(torch.broadcast_tensors(gi[:, :, None], gj[None, None, :]), dim=-1)
-    return og.repeat_interleave(B, dim=0)
+    return og[:, None].expand(-1, B, -1, -1, -1).reshape(-1, Tmax, nbw, 2)
 
 
 def _banded_volume(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int, R: int,
@@ -229,11 +246,11 @@ def _banded_volume(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int
     groups = []
     for ks in _by_device(prev_bands):
         dev = prev_bands[ks[0]].device
-        gb0 = torch.tensor([gb0s[k] for k in ks], dtype=torch.int32, device=dev)
+        gb0 = _band_origins([gb0s[k] for k in ks], dev)
         vol = compute_cost_volume_band(
             torch.cat([prev_blk[k] for k in ks]).contiguous(),
             torch.cat([curr_blk[k] for k in ks]).contiguous(),
-            gb0.repeat_interleave(B), (H, W), bs, R, pnorm,
+            gb0[:, None].expand(-1, B).reshape(-1), (H, W), bs, R, pnorm,
         )
         groups.append((ks, vol, _stacked_origins(gb0, B, Tmax, nbw, bs)))
     return groups, gb0s, valid
@@ -290,7 +307,7 @@ def banded_exhaustive_field(prev_bands: Bands, curr_bands: Bands, H: int, W: int
         vol = _dfd_cost_volume(torch.cat([prev_blk[k] for k in ks]).contiguous(),
                                torch.cat([curr_blk[k] for k in ks]).contiguous(), bs, D, pnorm)
         offsets = torch.arange(-sw, sw + bs, dtype=torch.int32, device=dev)
-        gb0 = torch.tensor([gb0s[k] for k in ks], dtype=torch.int32, device=dev)
+        gb0 = _band_origins([gb0s[k] for k in ks], dev)
         row = ((gb0[:, None] + torch.arange(Tmax, dtype=torch.int32, device=dev)) * bs)[..., None]
         valid_r = (row + offsets >= 0) & (row + offsets <= H - bs)  # (len(ks), Tmax, D_wr)
         valid_c = _offset_mask(nbw, bs, W, offsets)  # (nbw, D_wc)
@@ -491,29 +508,66 @@ def validate_spatial_shapes(H: int, space: int, cfg: GMEConfig, W: int | None = 
             )
 
 
-def make_spatial_pipeline(mesh: Mesh, cfg: GMEConfig, H: int, W: int):
-    """The fully sharded step: pairs over "data", frame rows over "space".
-    Returns step(prev, curr) for (B, H, W) uint8 batches, B a multiple of
-    the data size, giving the dict of `gme_pipeline_batch` (without the
-    bands) on the first slot's device."""
-    space = mesh.shape[SPACE_AXIS]
-    validate_spatial_shapes(H, space, cfg, W)
-    lh = H // space
-    out_dev = mesh.devices[0][0]
+def spatial_program(prev: torch.Tensor, curr: torch.Tensor,
+                    devices: Tuple[Tuple[torch.device, ...], ...], cfg: GMEConfig, H: int,
+                    W: int) -> Dict[str, torch.Tensor]:
+    """The lockstep program of a (data, space) mesh whose slots are
+    `devices` (`Mesh.devices`): the (B, H, W) uint8 batch split into data
+    shards of pairs and bands of rows, `spatial_gme_step` on each shard,
+    and the dict of `gme_pipeline_batch` gathered on the first slot's
+    device.  B must be a multiple of the data size."""
+    lh = H // len(devices[0])
+    out_dev = devices[0][0]
+    n = prev.shape[0] // len(devices)
+    outs = []
+    for d, slots in enumerate(devices):
+        p, c = prev[d * n:(d + 1) * n], curr[d * n:(d + 1) * n]
+        o = spatial_gme_step([p[:, s * lh:(s + 1) * lh].to(dev) for s, dev in enumerate(slots)],
+                             [c[:, s * lh:(s + 1) * lh].to(dev) for s, dev in enumerate(slots)],
+                             cfg, H, W)
+        outs.append({k: all_gather(v, dim=1).to(out_dev) if isinstance(v, list)
+                     else v.to(out_dev) for k, v in o.items()})
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+# The JAX package's `jax.jit(sharded)` (JAX spatial.py:624-658): one
+# captured CUDA graph per (mesh, cfg, H, W, frame shape, device).
+spatial_program_jit = compiled(spatial_program, static_argnames=("devices", "cfg", "H", "W"))
+
+
+def _check_batch(mesh: Mesh, B: int) -> None:
+    if B % len(mesh.devices):
+        raise ValueError(f"batch {B} must divide by mesh data={len(mesh.devices)}")
+
+
+def make_spatial_pipeline_eager(mesh: Mesh, cfg: GMEConfig, H: int, W: int):
+    """The fully sharded step run op by op: pairs over "data", frame rows
+    over "space".  Returns step(prev, curr) for (B, H, W) uint8 batches, B
+    a multiple of the data size, giving the dict of `gme_pipeline_batch`
+    (without the bands) on the first slot's device."""
+    validate_spatial_shapes(H, mesh.shape[SPACE_AXIS], cfg, W)
 
     def step(prev: torch.Tensor, curr: torch.Tensor) -> Dict[str, torch.Tensor]:
-        B = prev.shape[0]
-        if B % len(mesh.devices):
-            raise ValueError(f"batch {B} must divide by mesh data={len(mesh.devices)}")
-        n = B // len(mesh.devices)
-        outs = []
-        for d, slots in enumerate(mesh.devices):
-            p, c = prev[d * n:(d + 1) * n], curr[d * n:(d + 1) * n]
-            o = spatial_gme_step([p[:, s * lh:(s + 1) * lh].to(dev) for s, dev in enumerate(slots)],
-                                 [c[:, s * lh:(s + 1) * lh].to(dev) for s, dev in enumerate(slots)],
-                                 cfg, H, W)
-            outs.append({k: all_gather(v, dim=1).to(out_dev) if isinstance(v, list)
-                         else v.to(out_dev) for k, v in o.items()})
-        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        _check_batch(mesh, prev.shape[0])
+        return spatial_program(prev, curr, mesh.devices, cfg, H, W)
+
+    return step
+
+
+def make_spatial_pipeline(mesh: Mesh, cfg: GMEConfig, H: int, W: int):
+    """The fully sharded step, the contract of `make_spatial_pipeline_eager`.
+    Where every slot names one device, the frames go to it and the step is
+    the compiled `spatial_program_jit` (one CUDA graph a key on a card, the
+    program itself on the CPU); a mesh over several devices gets the eager
+    step (module docstring)."""
+    eager = make_spatial_pipeline_eager(mesh, cfg, H, W)  # checks the shapes
+    slots = {dev for row in mesh.devices for dev in row}
+    if len(slots) > 1:
+        return eager
+    (dev,) = slots
+
+    def step(prev: torch.Tensor, curr: torch.Tensor) -> Dict[str, torch.Tensor]:
+        _check_batch(mesh, prev.shape[0])
+        return spatial_program_jit(prev.to(dev), curr.to(dev), mesh.devices, cfg, H, W)
 
     return step

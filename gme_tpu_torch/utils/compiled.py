@@ -123,6 +123,10 @@ def _unflatten(struct, leaves):
     return build(struct)
 
 
+def _key(static, struct, leaves):
+    return (static, struct, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+
+
 def _failing_line(tb) -> str:
     """The innermost line of a traceback outside this module and torch:
     the op of the compiled function that broke its capture."""
@@ -286,7 +290,7 @@ class Compiled:
         the others with their non-tensor values, and each tensor's shape,
         dtype and device."""
         static, _, leaves, struct = self._split(args, kwargs)
-        return (static, struct, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+        return _key(static, struct, leaves)
 
     def __call__(self, *args, **kwargs):
         static, dynamic, leaves, struct = self._split(args, kwargs)
@@ -298,7 +302,7 @@ class Compiled:
             raise ValueError(f"{self.name}: tensors on different devices: "
                              f"{sorted(map(str, devices))}")
         device = devices.pop()
-        key = (static, struct, tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+        key = _key(static, struct, leaves)
         with self._lock:
             entry = self.entries.get(key)
             if entry is None:
@@ -315,6 +319,18 @@ class Compiled:
                 outs = [t.clone() for t in entry.outputs]
             self.last_entry = entry
         return _unflatten(entry.out_struct, outs)
+
+    def prepare(self, *args, **kwargs) -> Entry:
+        """The entry of this call's key, captured by an earlier call, with
+        this call's tensors copied into its input buffers: `replay()` then
+        runs its graphs alone, without a call's copies in and clones out
+        (a profiler's view of the compiled function)."""
+        static, _, leaves, struct = self._split(args, kwargs)
+        with self._lock:
+            entry = self.entries[_key(static, struct, leaves)]
+            for buf, t in zip(entry.inputs, leaves):
+                buf.copy_(t)
+        return entry
 
     def _call_body(self, static, struct, inputs):
         kwargs = dict(_unflatten(struct, inputs))

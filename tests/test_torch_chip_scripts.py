@@ -1,7 +1,9 @@
 """The card scripts' helpers on the CPU: `chip_smoke.py`'s bounds, library
-yardstick and build-log parsing.  The scripts themselves run only on the
-card."""
+yardstick and build-log parsing, and the per-stage profile
+(`gme_tpu_torch.tools.profile_stages`) at a small size with
+`--device cpu`.  The scripts themselves run only on the card."""
 
+import json
 import os
 import subprocess
 import sys
@@ -226,3 +228,84 @@ def test_sass_counts_per_function():
     assert sum(chip_smoke.sass_counts(funcs, chip_smoke.VABSDIFF_OPS).values()) == 1
     tc = chip_smoke.sass_counts(funcs, chip_smoke.TENSOR_CORE_OPS)
     assert [n for f, n in tc.items() if "cost_volume_cross_kernel" in f] == [1]
+
+
+# ---------------------------------------------------------------------------
+# gme_tpu_torch.tools.profile_stages, on the CPU
+# ---------------------------------------------------------------------------
+
+# Every stage the tool times: the JAX tool's, then the partition of the step.
+PROFILE_STAGES = [
+    "pyramids(prev)+pyramids(curr)", "dense init (12x16 bs2 diamond)",
+    "cost_volume lvl1 R=32 bs16", "diamond bs16 lvl1 (vol+walk)",
+    "cost_volume lvl2 R=32 bs16", "diamond bs16 lvl2 (vol+walk)", "global_motion_estimation",
+    "affine field + warp", "gme_pipeline_batch (full; its graph replay)",
+    "pyramids(prev)+pyramids(curr)",
+] + [f"{lvl}: {stage}" for lvl in ("dense", "lvl1", "lvl2") for stage in (
+    ("pad + volume kernel", "+inf mask", "chase", "SDSP + field")
+    + (("first parameters",) if lvl == "dense" else
+       ("projection + affine grid + outlier mask", "fit")))] + [
+    "dense affine field", "warp", "diffs", "metrics (psnr)", "compiled step: input copies",
+    "compiled step: output clones"]
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the frames are tiny, and beside the other test
+    workers more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_profile_stages_command_on_the_cpu():
+    """`python -m gme_tpu_torch.tools.profile_stages 48x64 2 --device cpu`
+    exits 0 and prints every stage, the partition marked, the closing sum
+    and a JSON record; it reports no device time on the CPU."""
+    proc = subprocess.run([sys.executable, "-m", "gme_tpu_torch.tools.profile_stages", "48x64",
+                           "2", "--device", "cpu", "--reps", "2"], cwd=REPO, capture_output=True,
+                          text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    result = json.loads(lines[-1])
+    assert [r["stage"] for r in result["stages"]] == PROFILE_STAGES
+    assert sum(r["partition"] for r in result["stages"]) == 24
+    assert all(r["device_ms"] is None and r["ms"] > 0 for r in result["stages"])
+    assert result["partition_device_ms"] is None and result["step_busy_ms"] is None
+    assert (result["H"], result["W"], result["batch"]) == (48, 64, 2)
+    for name in PROFILE_STAGES:
+        assert any(name in line and "host ms/pair" in line for line in lines[1:-2]), name
+    assert lines[-2].startswith("sum of the 24 disjoint stages:")
+
+
+def test_profile_stages_outputs_equal_the_eager_step(one_thread):
+    """The tool's full-batch outputs (the compiled step, its body on the
+    CPU) equal `gme_pipeline_batch_eager`'s on its frames, which are a pan
+    of a smooth texture made from the seeded generator."""
+    from gme_tpu_torch.config import GMEConfig
+    from gme_tpu_torch.models.gme import gme_pipeline_batch_eager
+    from gme_tpu_torch.tools import profile_stages
+
+    lines = []
+    result = profile_stages.run(48, 64, 2, "cpu", reps=1, emit=lines.append)
+    prev, curr = profile_stages.pan_frames(48, 64, 2, profile_stages.SEEDS[0], "cpu")
+    dy, dx = profile_stages.PAN
+    assert torch.equal(prev[:, :-dy, :-dx], curr[:, dy:, dx:])
+    want = gme_pipeline_batch_eager(prev, curr, GMEConfig())
+    assert set(result["outputs"]) == set(want)
+    for k in want:
+        assert torch.equal(result["outputs"][k], want[k]), k
+    assert len(lines) == 1 + len(PROFILE_STAGES) + 1
+
+
+def test_profile_stages_needs_the_card_unless_told():
+    """Without `--device cpu` the tool runs on the card; with none it
+    fails and prints no result."""
+    proc = subprocess.run([sys.executable, "-m", "gme_tpu_torch.tools.profile_stages", "48x64",
+                           "2"], cwd=REPO, capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="",
+                                   OMP_NUM_THREADS="1"))
+    assert proc.returncode == 1 and proc.stdout == ""
+    assert "no CUDA device" in proc.stderr

@@ -15,10 +15,11 @@ parameters to PARAM_ATOL, exact on FMA hosts, PSNR to 1e-4 dB):
   `psnr_jit` and direct GME's `optimize_level`.
 
 And what makes a capture possible, checked on the CPU: the fit runs on
-`meta` tensors (no host copy), the default step reads nothing back to the
-host and makes no tensor from host data but 0-dim scalars, 2D-log reads
-once a chunk, `while_loop` keeps the loop's semantics, and the helper's
-cache key.
+`meta` tensors (no host copy), the default step and the spatial band
+program read nothing back to the host and make no tensor from host data
+but 0-dim scalars, 2D-log reads once a chunk, `while_loop` keeps the
+loop's semantics, and the helper's cache key; the compiled spatial step
+equals its eager body.
 """
 
 import dataclasses
@@ -44,6 +45,8 @@ from gme_tpu_torch.models import gme as tgme
 from gme_tpu_torch.ops import affine as taff
 from gme_tpu_torch.ops import bbme as tbbme
 from gme_tpu_torch.ops import cuda_kernels
+from gme_tpu_torch.parallel import spatial
+from gme_tpu_torch.parallel.mesh import make_mesh
 from gme_tpu_torch.utils import compiled as C
 from test_direct import _smooth_image
 from test_torch_ops import PARAM_ATOL, PSNR_ATOL
@@ -310,3 +313,59 @@ def test_compiled_key_and_cpu_calls():
     assert len(step.entries) == n == 0
     with pytest.raises(ValueError, match="no arguments named"):
         C.compiled(lambda x: x, static_argnames=("y",))
+
+
+# ---------------------------------------------------------------------------
+# The spatial band program (parallel/spatial.py)
+# ---------------------------------------------------------------------------
+
+def _spatial_pairs(seed=4, B=2, H=64, W=96):
+    rng = np.random.RandomState(seed)
+    prev = np.stack([_smooth_frame(rng, H, W) for _ in range(B)])
+    curr = np.stack([np.roll(p, (1 + k, 2 - k), (0, 1)) for k, p in enumerate(prev)])
+    return _t(prev), _t(curr)
+
+
+@pytest.mark.parametrize("space,procedure", [(2, DIAMOND), (4, DIAMOND), (4, THREESTEP),
+                                             (4, EXHAUSTIVE)])
+def test_spatial_program_reads_nothing_back(monkeypatch, space, procedure):
+    """The lockstep band program, every slot one device, reads no tensor on
+    the host and makes no tensor from host data but 0-dim scalars: the band
+    origins are filled on the device, so the program captures whole."""
+    prev, curr = _spatial_pairs()
+    cfg = GMEConfig(searching_procedure=procedure)
+    mesh = make_mesh(1, space, ["cpu"] * space)
+    mode = _HostTraffic()
+    _watch(monkeypatch, mode)
+    with mode:
+        spatial.spatial_program(prev, curr, mesh.devices, cfg, *prev.shape[1:])
+    assert mode.uploads == []
+    assert mode.reads == 0
+
+
+def test_compiled_spatial_step_equals_its_eager_body():
+    """Over slots that all name one device `make_spatial_pipeline` is the
+    compiled band program (its body on the CPU), equal to the eager step
+    and to the 1x1 step; its key separates meshes of another shape, and a
+    mesh over two devices keeps the eager step."""
+    prev, curr = _spatial_pairs()
+    H, W = prev.shape[1:]
+    cfg = GMEConfig(search_impl="volume")
+    assert isinstance(spatial.spatial_program_jit, C.Compiled)
+    one = tgme.gme_pipeline_batch(prev, curr, cfg)
+    for data, space in ((1, 4), (2, 2)):
+        mesh = make_mesh(data, space, ["cpu"] * (data * space))
+        got = spatial.make_spatial_pipeline(mesh, cfg, H, W)(prev, curr)
+        want = spatial.make_spatial_pipeline_eager(mesh, cfg, H, W)(prev, curr)
+        assert set(got) == set(want) == set(one)
+        for k in want:
+            assert torch.equal(got[k], want[k]) and torch.equal(got[k], one[k]), (data, space, k)
+    assert len(spatial.spatial_program_jit.entries) == 0
+    keys = [spatial.spatial_program_jit.key(prev, curr, make_mesh(d, s, ["cpu"] * 4).devices,
+                                            cfg, H, W) for d, s in ((1, 4), (2, 2), (4, 1))]
+    assert len(set(keys)) == 3
+    two = make_mesh(1, 2, ["cpu", "meta"])
+    assert "make_spatial_pipeline_eager" in spatial.make_spatial_pipeline(
+        two, cfg, H, W).__qualname__
+    with pytest.raises(ValueError, match="must divide"):
+        spatial.make_spatial_pipeline(make_mesh(2, 2, ["cpu"] * 4), cfg, H, W)(prev[:1], curr[:1])

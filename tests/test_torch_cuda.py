@@ -543,26 +543,30 @@ def test_cost_volume_band_equals_cpu(cuda, pnorm, bs, R, T, nbw):
 def test_spatial_step_on_one_card_equals_cpu(cuda, H, W, space, sp):
     """The spatial step with its bands on one card: the stacked volume
     kernels and chase give the 1x1 step's outputs, and the CPU's."""
+    from gme_tpu_torch.models.gme import gme_pipeline_batch_eager
     from gme_tpu_torch.parallel.mesh import make_mesh
-    from gme_tpu_torch.parallel.spatial import make_spatial_pipeline
+    from gme_tpu_torch.parallel.spatial import make_spatial_pipeline, make_spatial_pipeline_eager
 
     rng = np.random.RandomState(H + space)
     prev = rng.randint(0, 256, (2, H, W)).astype(np.uint8)
     curr = np.stack([np.roll(p, (2, -1), (0, 1)) for p in prev])
     cfg = GMEConfig(search_impl="volume", searching_procedure=sp)
-    step = make_spatial_pipeline(make_mesh(2, space, [cuda] * (2 * space)), cfg, H, W)
+    mesh = make_mesh(2, space, [cuda] * (2 * space))
+    p, c = torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda)
     K.reset_launch_counts()
-    got = step(torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda))
+    got = make_spatial_pipeline_eager(mesh, cfg, H, W)(p, c)
     banded = dict(K.LAUNCHES)
     K.reset_launch_counts()
-    one = gme_pipeline_batch(torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda), cfg)
+    one = gme_pipeline_batch_eager(p, c, cfg)
     # Two data shards, each one launch of each kernel a level.
     assert banded == {k: 2 * v for k, v in K.LAUNCHES.items() if k != "warp_block_field"} | {
         "warp_block_field": 0}, (banded, K.LAUNCHES)
+    graphed = make_spatial_pipeline(mesh, cfg, H, W)(p, c)  # every slot one card: compiled
     cpu = make_spatial_pipeline(make_mesh(2, space, ["cpu"] * (2 * space)), cfg, H, W)(
         torch.from_numpy(prev), torch.from_numpy(curr))
     for k in one:
         assert torch.equal(got[k].cpu(), one[k].cpu()), k
+        assert torch.equal(graphed[k], got[k]), k
         if k == "psnr":  # log10 on the card and on the CPU may differ by an ulp
             torch.testing.assert_close(got[k].cpu(), cpu[k], rtol=0, atol=1e-4)
         else:
@@ -770,6 +774,49 @@ def test_compiled_f32_fit_equals_eager(cuda):
     assert len(fit.entries) == 1
     fit.clear()
     assert not fit.entries and fit.last_entry is None
+
+
+@pytest.mark.parametrize("space,sp", [(2, DIAMOND), (4, DIAMOND), (4, 1), (4, 0)])
+def test_compiled_spatial_step_equals_eager_and_one_card(cuda, space, sp):
+    """Every slot on one card: the spatial step is one compiled band
+    program, bit-equal to its eager body (as many launches a replay) and to
+    the 1x1 step, PSNR included, over two calls on different frames."""
+    from gme_tpu_torch.models.gme import gme_pipeline_batch_eager
+    from gme_tpu_torch.parallel import spatial
+    from gme_tpu_torch.parallel.mesh import make_mesh
+
+    H, W = 96, 84
+    cfg = GMEConfig(search_impl="volume", searching_procedure=sp)
+    mesh = make_mesh(1, space, [cuda] * space)
+    step = spatial.make_spatial_pipeline(mesh, cfg, H, W)
+    eager = spatial.make_spatial_pipeline_eager(mesh, cfg, H, W)
+    calls = []
+    for seed, shift in ((0, (3, -5)), (1, (-6, 9))):
+        prev, curr = _pan_pair(seed, H, W, shift)
+        calls.append((prev.to(cuda), curr.to(cuda)))
+    _compiled_equals_eager(step, eager, calls)
+    assert spatial.spatial_program_jit.last_entry is not None
+    for p, c in calls:
+        got, one = step(p, c), gme_pipeline_batch_eager(p, c, cfg)
+        for k in one:
+            assert torch.equal(got[k], one[k]), k
+
+
+def test_profile_stages_runs_on_the_card(cuda):
+    """`python -m gme_tpu_torch.tools.profile_stages` at its default size
+    (240x320, batch 32): every stage timed on the card, the partition's
+    outputs and the compiled step's equal to the eager step's."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "gme_tpu_torch.tools.profile_stages", "--reps",
+                           "3"], cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (result["H"], result["W"], result["batch"]) == (240, 320, 32)
+    assert all(r["device_ms"] > 0 for r in result["stages"]), result["stages"]
+    assert result["step_busy_ms"] > 0 and result["partition_device_ms"] > 0
 
 
 def test_capture_of_a_host_read_raises(cuda):

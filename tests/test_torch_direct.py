@@ -67,6 +67,11 @@ GRAD_RTOL = 1e-5
 _FMA = _host_has_fma()
 SAMPLE_ATOL = 0.0 if _FMA else 1e-4
 WARP_ATOL = 0.0 if _FMA else 1e-3
+# `cli direct` over 60 Adam steps: the losses' sums run in another order
+# than XLA's (test_cli_direct_matches_jax).  Without FMA every product
+# rounds apart as well.
+CLI_PARAM_ATOL = 1e-5 if _FMA else 1e-3
+CLI_PSNR_ATOL = 1e-4 if _FMA else 0.05
 
 
 def _t(a):
@@ -334,7 +339,11 @@ def test_float_frames_take_the_float_pyramid():
 
 def test_cli_direct_matches_jax(tmp_path, capsys):
     """`cli direct` prints the JAX command's JSON keys with close values and
-    writes direct_<fi>.png."""
+    writes direct_<fi>.png.  The losses' pixel sums run in another order
+    than XLA's, so the parameters drift with the Adam steps (ROADMAP C7):
+    on an FMA host, at 60 steps, 2.4e-7 in the parameters and 3.8e-6 dB in
+    `psnr_after`; at the default 300, 1.54e-5 and 0.013 dB.  Held at 60
+    steps to CLI_PARAM_ATOL and CLI_PSNR_ATOL."""
     import json
     import os
 
@@ -353,9 +362,9 @@ def test_cli_direct_matches_jax(tmp_path, capsys):
     got = json.loads(capsys.readouterr().out)
     assert sorted(got) == sorted(want) == ["model", "parameters", "psnr_after", "psnr_before"]
     assert got["model"] == want["model"] == "affine"
-    np.testing.assert_allclose(got["parameters"], want["parameters"], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got["parameters"], want["parameters"], rtol=0, atol=CLI_PARAM_ATOL)
     assert abs(got["psnr_before"] - want["psnr_before"]) < 1e-4
-    assert abs(got["psnr_after"] - want["psnr_after"]) < 0.05
+    assert abs(got["psnr_after"] - want["psnr_after"]) < CLI_PSNR_ATOL
     assert got["psnr_after"] > got["psnr_before"] + 6
     assert os.listdir(tmp_path / "port") == ["direct_2.png"]
 

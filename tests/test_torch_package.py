@@ -3,9 +3,11 @@ across from the JAX package, the public API against the JAX package's, a
 kernel loader that raises, the configurations off the default path against
 the JAX package, and what still raises."""
 
+import ctypes
 import dataclasses
 import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -209,3 +211,63 @@ def test_unported_searches_raise():
     field = bbme.get_motion_field(prev, curr, block_size=20, searching_procedure=DIAMOND,
                                   search_impl="gather", pnorm_distance=MAE)
     assert field.shape == (1, 3, 3, 2)
+
+
+# ---------------------------------------------------------------------------
+# The native runtime's source belongs to the port
+# ---------------------------------------------------------------------------
+
+# A source-line label for the reader ("gme_tpu/ops/pallas_kernels.py:128")
+# reads no file; any other string naming the JAX package as a path does.
+_LABEL = re.compile(r"gme_tpu/[\w/]+\.py:\d+")
+
+
+def _jax_package_paths(path):
+    """The string constants of a Python file that name the JAX package's
+    directory as a path component: "gme_tpu" itself, or a path that starts
+    with it (labels of the `_LABEL` form excepted)."""
+    import ast
+
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    return [
+        (node.lineno, node.value) for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and (node.value == "gme_tpu" or node.value.startswith(("gme_tpu/", "gme_tpu" + os.sep)))
+        and not _LABEL.fullmatch(node.value)
+    ]
+
+
+def test_port_names_no_file_of_the_jax_package():
+    """The native loader builds the port's own copy of the C++ source, and
+    no module of the port, nor a card script, names a path under the JAX
+    package: a tree with only `gme_tpu_torch/` builds and runs."""
+    from gme_tpu_torch.native import loader
+
+    port = os.path.join(REPO, "gme_tpu_torch")
+    assert os.path.commonpath([os.path.abspath(loader.SOURCE), port]) == port
+    assert loader.SOURCE == os.path.join(port, "native", "gme_native.cpp")
+    assert os.path.isfile(loader.SOURCE)
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_profile.py")]
+    for root, _, names in os.walk(port):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = {os.path.relpath(f, REPO): h for f in files if (h := _jax_package_paths(f))}
+    assert hits == {}
+
+
+def test_native_runtime_builds_from_the_port_source(monkeypatch, tmp_path):
+    """Where g++ and zlib exist, the library builds from
+    `gme_tpu_torch/native/gme_native.cpp` into a fresh build directory and
+    loads with every entry point bound."""
+    import shutil
+
+    from gme_tpu_torch.native import loader
+
+    if shutil.which("g++") is None or not any(
+            os.path.exists(os.path.join(d, "zlib.h")) for d in ("/usr/include", "/usr/local/include")):
+        pytest.skip("g++ or zlib.h is missing")
+    monkeypatch.setattr(loader, "_BUILD_DIR", str(tmp_path / "build"))
+    path = loader.build(force=True)
+    assert os.path.dirname(path) == str(tmp_path / "build")
+    lib = loader._bind(ctypes.CDLL(path))
+    assert lib.gme_codec_available() in (0, 1)
