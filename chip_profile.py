@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's paths, on one CUDA card.
+"""Where the time goes in the PyTorch port's paths, on one CUDA card (and across cards).
 
     python3 chip_profile.py [--reps 5]
 
@@ -26,7 +26,11 @@ Then it reads the latency-bound kernels at the default step's 720p shapes
 the package has it, and `warp_block_field`) and the launch floor (a
 one-element fill) three ways: CUDA events around a loop of wrapper calls,
 the device's own duration from torch.profiler, and the wrapper's host time
-a call.  Then `[stages]`: the default 720p step at batch 24 stage by stage
+a call.  Where more than one card is visible, `[cards]`: the spatial band
+program over min(4, cards) distinct cards for one 720p pair under
+diamond, three-step and exhaustive, eager and compiled (per-card graphs
+split at the collectives) in turns, with the host time and each card's
+busy time, idle share and peak memory.  Then `[stages]`: the default 720p step at batch 24 stage by stage
 (`gme_tpu_torch.tools.profile_stages`, `2 * --reps` timed replays a
 stage), with the sum of its disjoint stages against the compiled step's
 busy time.  Then it runs the volume kernels at their paths' shapes while
@@ -142,6 +146,74 @@ def sass_mix(K):
     return dict(mix.most_common())
 
 
+def profile_cards(torch, fn, reps, cards):
+    """`profile_path` over several cards: the host time of a call
+    synchronised on every card, and per card the busy time (the union of
+    that card's device events in one profiled call), idle share and peak
+    memory."""
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    for _ in range(2):
+        fn()
+    sync()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = float(np.median(walls)) * 1e3
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync()
+    per = {}
+    for d in cards:
+        busy_us, _ = busy_intervals(torch, prof, d.index)
+        if busy_us <= 0:
+            raise RuntimeError(f"the profiler recorded no device activity on {d}")
+        per[str(d)] = {"busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e3 / wall_ms,
+                       "peak_gib": torch.cuda.max_memory_allocated(d) / 2**30}
+    return {"wall_ms": wall_ms, "walls_ms": [w * 1e3 for w in walls], "cards": per}
+
+
+def band_program_across_cards(torch, prev, curr, reps, card):
+    """`[cards]`: the spatial band program over min(4, visible) distinct
+    cards, one 720p pair (on card 0) under diamond, three-step and
+    exhaustive: the eager program and the compiled one (per-card graphs
+    split at the collectives) in turns, eager, compiled, compiled, eager."""
+    from gme_tpu_torch.config import GMEConfig
+    from gme_tpu_torch.parallel import spatial as SP
+    from gme_tpu_torch.parallel.mesh import make_mesh
+
+    S = min(4, torch.cuda.device_count())
+    cards = [torch.device("cuda", i) for i in range(S)]
+    H, W = prev.shape[1:]
+    base = GMEConfig(search_impl="volume")
+    out = {}
+    for name, cfg in (("diamond", base), ("three-step", base.replace(searching_procedure=1)),
+                      ("exhaustive", base.replace(searching_procedure=0))):
+        mesh = make_mesh(1, S, cards)
+        fns = {"eager": SP.make_spatial_pipeline_eager(mesh, cfg, H, W),
+               "compiled": SP.make_spatial_pipeline(mesh, cfg, H, W)}
+        for turn, kind in enumerate(("eager", "compiled", "compiled", "eager")):
+            r = profile_cards(torch, lambda fn=fns[kind]: fn(prev, curr), reps, cards)
+            out[f"{name} s{S} {kind} {turn}"] = r
+            per = "; ".join(f"{d} busy {c['busy_ms']:.3f} ms idle {c['idle_share']:.3f} peak "
+                            f"{c['peak_gib']:.2f} GiB" for d, c in r["cards"].items())
+            print(f"[cards] {name} space={S} {kind} (turn {turn}): host {r['wall_ms']:.3f} ms; "
+                  f"{per} ({card})", flush=True)
+        entry = SP.spatial_program_segmented.last_entry
+        out[f"{name} s{S} plan"] = {"graphs": len(entry.graphs), "steps": len(entry.steps)}
+        SP.spatial_program_segmented.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
 def latency_bound_kernels(torch, K, bbme, prev, curr, cfg, dev, card, reps=10):
     """{name: {ms, device_ms, host_us}} of the launch floor and the
     latency-bound kernels at the default step's level-2 shapes."""
@@ -230,6 +302,8 @@ def main():
               flush=True)
         torch.cuda.empty_cache()
 
+    if torch.cuda.device_count() > 1:
+        result["cards"] = band_program_across_cards(torch, prev[:1], curr[:1], args.reps, card)
     result["latency"] = latency_bound_kernels(torch, K, bbme, prev, curr, cfg, dev, card)
     torch.cuda.empty_cache()
 

@@ -56,9 +56,21 @@ path through the entry points a user calls:
   CUDA graph) each counted and equal to the 1x1 step with as many launches
   of each kernel, the compiled one against its eager body over two calls
   on different frames with host ms, busy ms and idle share beside the 1x1
-  step's (rows to chiprun_out/mesh.json), and `process_video` at
-  data=2,space=2; then two processes of the command line on a gloo process
-  group, their merged records equal to the single-process run's.
+  step's (rows to chiprun_out/mesh.json), the segmented band program
+  (per-device graphs split at the collectives, each collective a step of
+  copies) called by name in each spatial case, bit-equal to the single
+  graph and to the 1x1 step, and `process_video` at data=2,space=2;
+- `[cards]`, where the machine has two or more cards: the band program
+  over min(4, cards) distinct cards (the segmented program that
+  `make_spatial_pipeline` gives such a mesh) under diamond, three-step and
+  exhaustive on one 720p pair, against its eager body and the 1x1 step on
+  card 0 over two calls, with peer access, host ms and each card's busy
+  ms, idle share and peak memory (rows to chiprun_out/cards.json), and
+  `process_video` with a 2x2 mesh over four cards (1x2 over two) on the
+  97-frame 720p pan against the 1x1 driver; on one card a line says it was
+  not run;
+- then two processes of the command line on a gloo process group, their
+  merged records equal to the single-process run's.
 
 Each 720p path runs with the launch counts set to 0 just before it and read
 just after (the wrappers' counts and the CUDA graph replays', which call no
@@ -992,22 +1004,21 @@ def mesh_phase(torch, K, card, launch_log, captured, dev, work):
             torch, lambda: gme_tpu_torch.gme_pipeline_batch(p1, c1, scfg))
         row = rows[f"spatial s{space} {name} B=1"]
         row.update(one_host_ms=one_ms, one_busy_ms=one_busy, one_device_items=one_items)
-
-        def ms(v):
-            return "not measured" if v is None else f"{v:.3f}"
-
         phase("mesh", f"spatial {name} space={space} on one card, 1 pair 720p: the compiled band "
               f"program ({row['graphs']} graph, {row['host_reads']} host reads) == its eager body "
               f"== the 1x1 step (every output bit for bit, PSNR included, seeds 0 and 1); "
               f"launches a replay {launch_log[path]} == the eager body's == the 1x1 step's but "
               f"warp_block_field (a plain gather there); host ms compiled "
               f"{row['compiled_host_ms']:.3f} eager {row['eager_host_ms']:.3f} 1x1 {one_ms:.3f}; "
-              f"busy ms compiled {ms(row['compiled_busy_ms'])} eager {ms(row['eager_busy_ms'])} "
-              f"1x1 {ms(one_busy)}; idle compiled {ms(row['compiled_idle'])} eager "
-              f"{ms(row['eager_idle'])}; device activities a call compiled "
+              f"busy ms compiled {fmt_ms(row['compiled_busy_ms'])} eager {fmt_ms(row['eager_busy_ms'])} "
+              f"1x1 {fmt_ms(one_busy)}; idle compiled {fmt_ms(row['compiled_idle'])} eager "
+              f"{fmt_ms(row['eager_idle'])}; device activities a call compiled "
               f"{row['compiled_device_items']} 1x1 {one_items} ({card}; one card runs the bands "
               "in turn: no speed-up)")
+        segmented_case(torch, K, card, SP, mesh, scfg, name, space, step, eager,
+                       [(p1, c1), (p2, c2)], launch_log, captured, rows, same)
     SP.spatial_program_jit.clear()
+    SP.spatial_program_segmented.clear()
     torch.cuda.empty_cache()
     del prev, curr
 
@@ -1031,6 +1042,162 @@ def mesh_phase(torch, K, card, launch_log, captured, dev, work):
     with open(os.path.join(HERE, "chiprun_out", "mesh.json"), "w") as f:
         json.dump({"card": card, "rows": rows}, f, indent=1)
     return clip, want
+
+
+def segmented_case(torch, K, card, SP, mesh, scfg, name, space, single, eager, calls,
+                   launch_log, captured, rows, same):
+    """The segmented band program (per-device graphs split at the
+    collectives), every slot on this card, called by name: against its
+    eager body (`compiled_case`), counted, and bit-equal to the single-graph
+    program and to the 1x1 step over the calls."""
+    import gme_tpu_torch
+
+    H, W = DRIVER_HW
+
+    def segmented(p, c):
+        return SP.spatial_program_segmented(p, c, mesh.devices, scfg, H, W)
+
+    key = f"segmented s{space} {name} B=1"
+    compiled_case(torch, K, card, key, segmented, eager, calls, MESH_KERNELS[name], rows,
+                  chain=lambda: ([SP.spatial_program_segmented.last_entry], 0))
+    path = f"mesh spatial s{space} {name}"
+    counted(torch, K, f"{path} segmented", lambda: segmented(*calls[0]), MESH_KERNELS[name],
+            launch_log, captured)
+    check(launch_log[f"{path} segmented"] == launch_log[f"{path} eager"],
+          f"{path} segmented: a replay launched {launch_log[f'{path} segmented']}, the eager "
+          f"body {launch_log[f'{path} eager']}")
+    for p, c in calls:
+        got = segmented(p, c)
+        same(got, single(p, c), f"{path} segmented against the single graph", exact=True)
+        same(got, gme_tpu_torch.gme_pipeline_batch(p, c, scfg), f"{path} segmented", exact=True)
+    row = rows[key]
+    phase("mesh", f"segmented {name} space={space} on one card, 1 pair 720p: {row['graphs']} "
+          f"graphs and {row['steps']} collective steps a call, {row['host_reads']} host reads; "
+          f"== the single graph == the 1x1 step bit for bit (seeds 0 and 1); launches a replay "
+          f"== the eager body's; host ms {row['compiled_host_ms']:.3f} (single graph "
+          f"{rows[f'spatial s{space} {name} B=1']['compiled_host_ms']:.3f}), busy ms "
+          f"{fmt_ms(row['compiled_busy_ms'])}, idle {fmt_ms(row['compiled_idle'])} ({card})")
+
+
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.3f}"
+
+
+def per_card(torch, fn, cards):
+    """One profiled call of `fn`: {card index: (busy ms, the union of that
+    card's device events, or None where none was recorded; peak GiB
+    allocated on it)}."""
+    fn()
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+    out = {}
+    for d in cards:
+        us, _ = busy_intervals(torch, prof, d.index)
+        out[d.index] = (us / 1e3 if us > 0 else None,
+                        torch.cuda.max_memory_allocated(d) / 2**30)
+    return out
+
+
+def cards_phase(torch, K, card, launch_log, captured, work, count):
+    """The band program across distinct cards: the segmented program of
+    `make_spatial_pipeline` on a (1, S) mesh over S = min(4, cards) cards,
+    under diamond, three-step and exhaustive, one 720p pair, against its
+    eager body over two calls on different frames and against the 1x1 step
+    on card 0 (every output bit for bit), with host ms, busy ms, idle and
+    peak memory per card; then the driver with a (2, S/2) mesh (S 4) or a
+    (1, 2) mesh over the cards against the 1x1 driver, 96 pairs."""
+    import gme_tpu_torch
+    from gme_tpu_torch.config import GMEConfig, MeshConfig, PipelineConfig
+    from gme_tpu_torch.io.video import write_y4m
+    from gme_tpu_torch.parallel import spatial as SP
+    from gme_tpu_torch.parallel.mesh import make_mesh
+    from gme_tpu_torch.pipeline.results import process_video
+
+    S = min(4, count)
+    cards = [torch.device("cuda", i) for i in range(S)]
+    peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in range(S) for j in range(S) if i != j}
+    phase("cards", f"{count} cards; peer access {peer} ({card})")
+    H, W = DRIVER_HW
+    dev = cards[0]
+    calls = []
+    for seed in (0, 1):
+        f = synthetic_pan(2, H, W, PAN_STEP, seed=seed)
+        calls.append(tuple(torch.from_numpy(f[i:i + 1]).to(dev) for i in (0, 1)))
+    rows = {"card": card, "peer_access": peer}
+
+    def same(got, want, what):
+        for k in want:
+            check(got[k].device == dev and torch.equal(got[k], want[k]),
+                  f"{what}: {k} differs from the 1x1 step on card 0")
+
+    base = GMEConfig(search_impl="volume")
+    for name, scfg in (("diamond", base), ("three-step", base.replace(searching_procedure=1)),
+                       ("exhaustive", base.replace(searching_procedure=0))):
+        mesh = make_mesh(1, S, cards)
+        check(SP._program_for(mesh) is SP.spatial_program_segmented,
+              f"cards {name}: the mesh did not get the segmented program")
+        step = SP.make_spatial_pipeline(mesh, scfg, H, W)
+        eager = SP.make_spatial_pipeline_eager(mesh, scfg, H, W)
+        path = f"mesh cards s{S} {name}"
+        kernels = MESH_KERNELS[name]
+        counted(torch, K, f"{path} eager", lambda: eager(*calls[0]), kernels, launch_log, captured)
+        key = f"cards s{S} {name} B=1"
+        compiled_case(torch, K, card, key, step, eager, calls, kernels, rows,
+                      chain=lambda: ([SP.spatial_program_segmented.last_entry], 0))
+        counted(torch, K, path, lambda: step(*calls[0]), kernels, launch_log, captured)
+        check(launch_log[path] == launch_log[f"{path} eager"],
+              f"{path}: a replay launched {launch_log[path]}, the eager body "
+              f"{launch_log[f'{path} eager']}")
+        for p, c in calls:
+            same(step(p, c), gme_tpu_torch.gme_pipeline_batch(p, c, scfg), path)
+        row = rows[key]
+        row["compiled_cards"] = per_card(torch, lambda: step(*calls[-1]), cards)
+        row["eager_cards"] = per_card(torch, lambda: eager(*calls[-1]), cards)
+        row["devices"] = [str(d) for d in SP.spatial_program_segmented.last_entry.devices]
+
+        def cards_line(which, host):
+            return ", ".join(f"cuda:{i} busy {fmt_ms(b)} idle "
+                             f"{fmt_ms(None if b is None else 1 - b / host)} peak {g:.2f} GiB"
+                             for i, (b, g) in row[which].items())
+
+        phase("cards", f"{name} space={S} on {S} cards, 1 pair 720p: the segmented program "
+              f"({row['graphs']} graphs, {row['steps']} collective steps, {row['host_reads']} "
+              f"host reads a call) == its eager body == the 1x1 step on card 0 (every output "
+              f"bit for bit, PSNR and volume_edge_hits included, seeds 0 and 1); launches a "
+              f"replay {launch_log[path]} == the eager body's; host ms compiled "
+              f"{row['compiled_host_ms']:.3f} eager {row['eager_host_ms']:.3f}; compiled per card: "
+              f"{cards_line('compiled_cards', row['compiled_host_ms'])}; eager per card: "
+              f"{cards_line('eager_cards', row['eager_host_ms'])} ({card})")
+    SP.spatial_program_segmented.clear()
+    torch.cuda.empty_cache()
+
+    frames = synthetic_pan(DRIVER_FRAMES, H, W, PAN_STEP)
+    clip = os.path.join(work, "cards720.y4m")
+    write_y4m(clip, list(frames))
+    pcfg = PipelineConfig(gme=base, batch_size=BATCH_720P, write_images=False)
+    mcfg = MeshConfig(data=2, space=2) if S == 4 else MeshConfig(data=1, space=2)
+    flat = process_video(clip, os.path.join(work, "flat"), pcfg, device=dev)
+    meshed = process_video(clip, os.path.join(work, "meshed"), pcfg.replace(mesh=mcfg),
+                           device=dev, devices=cards[:mcfg.data * mcfg.space])
+    got, want = (read_records(os.path.join(work, d), "cards720") for d in ("meshed", "flat"))
+    check(len(got) == DRIVER_FRAMES - 1 and got == want
+          and meshed["volume_edge_hits"] == flat["volume_edge_hits"],
+          f"process_video {mcfg.data}x{mcfg.space} on cards: records differ from the 1x1 run")
+    rows["driver cards wall_s"], rows["driver 1x1 wall_s"] = meshed["wall_s"], flat["wall_s"]
+    phase("cards", f"process_video mesh data={mcfg.data},space={mcfg.space} on "
+          f"{[str(d) for d in cards[:mcfg.data * mcfg.space]]}, B={BATCH_720P} 720p: "
+          f"{len(got)} records == the 1x1 run exactly, volume_edge_hits equal; wall "
+          f"{meshed['wall_s']:.3f} s against {flat['wall_s']:.3f} s for the 1x1 driver on "
+          f"cuda:0 ({card})")
+    with open(os.path.join(HERE, "chiprun_out", "cards.json"), "w") as f:
+        json.dump(rows, f, indent=1)
 
 
 def multihost_phase(torch, card, dev, work, clip, want):
@@ -1072,12 +1239,14 @@ def multihost_phase(torch, card, dev, work, clip, want):
           f"exactly; {wall:.1f} s for both commands ({card})")
 
 
-def busy_intervals(torch, prof):
-    """(busy us, {name: us}) of the device activity in a profile: the union
-    of its intervals, and each name's total."""
+def busy_intervals(torch, prof, device_index=None):
+    """(busy us, {name: us}) of the device activity in a profile (of one
+    card where `device_index` is given): the union of its intervals, and
+    each name's total."""
     spans, by_name = [], {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or (
+                device_index is not None and evt.device_index != device_index):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
@@ -1175,6 +1344,7 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
            "compiled_busy_ms": comp_busy, "compiled_idle": idle(comp_ms, comp_busy),
            "eager_device_items": eager_items, "compiled_device_items": comp_items,
            "graphs": sum(len(e.graphs) for e in entries),
+           "steps": sum(len(e.steps) for e in entries),
            "host_reads": own_reads + sum(e.host_reads for e in entries),
            "launches": {k: v for k, v in replayed.items() if v},
            "peak_gib": peak / 2**30, "reserved_gib": reserved / 2**30}
@@ -1185,7 +1355,8 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
 
     phase("compiled", f"{name}: {len(calls)} calls == the eager body bit for bit, the first "
           f"unchanged by the second; launches a replay {row['launches']} == eager; no rank map; "
-          f"{row['graphs']} graph(s), {row['host_reads']} host read(s) a call; host ms eager "
+          f"{row['graphs']} graph(s), {row['steps']} collective step(s), {row['host_reads']} host "
+          f"read(s) a call; host ms eager "
           f"{eager_ms:.3f} compiled {comp_ms:.3f}; busy ms eager {ms(eager_busy)} compiled "
           f"{ms(comp_busy)}; idle eager {ms(row['eager_idle'])} compiled "
           f"{ms(row['compiled_idle'])}; peak {row['peak_gib']:.2f} GiB allocated, "
@@ -1844,13 +2015,20 @@ def run(torch):
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # Phases 11-13: direct GME, meshes on the card, two processes.
+    # Phases 11-13: direct GME, meshes on the card (and across the cards
+    # where there are several), two processes.
     work = tempfile.mkdtemp(prefix="smoke_mesh_", dir=out_dir)
     try:
         direct_phase(torch, card, dev, work)
         torch.cuda.empty_cache()
         clip, want = mesh_phase(torch, K, card, launch_log, captured, dev, work)
         torch.cuda.empty_cache()
+        if count >= 2:
+            cards_phase(torch, K, card, launch_log, captured, work, count)
+            torch.cuda.empty_cache()
+        else:
+            phase("cards", "the band program across distinct cards and the driver's mesh over "
+                  "them not run: this machine has one card")
         multihost_phase(torch, card, dev, work, clip, want)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -20,21 +20,23 @@ motion.py:109-136) runs on the bands:
 
 Where the JAX package runs this as one SPMD program under `shard_map`, the
 port runs it in one process, in lockstep over the bands: each band is a
-(B, lh, W) uint8 tensor on its slot's device, and the three collectives
-(`extend_rows`' neighbour rows, `psum`, `all_gather`) are functions of the
-whole list of bands.  The bands that share a device are stacked into the
-pair dimension for the volume kernels and the chase (`_by_device`); every
-band has the same (Tmax*bs, nbw*bs) shape (`_band_tmax`), so a level is one
-launch of each kernel per device, as in the single-device step.
+(B, lh, W) uint8 tensor on its slot's device, and the collectives
+(`extend_rows`' neighbour rows, `psum`, `all_gather`, `broadcast`,
+`scatter_rows`, `gather`) are functions of the whole list of bands.  They
+are the only places where a tensor moves between devices, each through one
+`utils.compiled.transfer`.  The bands that share a device are stacked into
+the pair dimension for the volume kernels and the chase (`_by_device`);
+every band has the same (Tmax*bs, nbw*bs) shape (`_band_tmax`), so a level
+is one launch of each kernel per device, as in the single-device step.
 
 The JAX package jits its sharded step.  Here the lockstep program
-(`spatial_program`) is compiled (`utils.compiled`: one CUDA graph per
-mesh, config, frame shape and device) when every slot of the mesh names
-one device, as on one card; it reads nothing back to the host and makes no
-tensor from host data.  A mesh whose slots name several cards runs it op
-by op (`make_spatial_pipeline_eager`): a compiled function takes tensors
-on one device, and a graph per card would split at each of the step's
-collectives (ROADMAP A16b).
+(`spatial_program`) is compiled (`utils.compiled`): where every slot of the
+mesh names one device, as on one card, into one CUDA graph per mesh,
+config, frame shape and device (`spatial_program_jit`); across devices into
+a chain of per-device graphs split at the collectives, each collective a
+step of copies between them (`spatial_program_segmented`).  The program
+reads nothing back to the host and makes no tensor from host data.
+`make_spatial_pipeline_eager` runs it op by op.
 
 The searches use the volume engine, as in the JAX package; compare with a
 single-device step under `search_impl="volume"`.
@@ -70,7 +72,7 @@ from gme_tpu_torch.ops.bbme import (
 from gme_tpu_torch.ops.metrics import frame_difference, psnr_from_sse, sse
 from gme_tpu_torch.ops.pyramid import _taps_stride2
 from gme_tpu_torch.parallel.mesh import SPACE_AXIS, Mesh
-from gme_tpu_torch.utils.compiled import compiled
+from gme_tpu_torch.utils.compiled import compiled, transfer
 
 Bands = List[torch.Tensor]  # S tensors (B, rows, ...), band k on its slot's device
 
@@ -79,49 +81,97 @@ Bands = List[torch.Tensor]  # S tensors (B, rows, ...), band k on its slot's dev
 # Collectives over the list of bands
 # ---------------------------------------------------------------------------
 
+def _exchange(specs: Sequence[Tuple[Bands, int, int]]) -> List[Bands]:
+    """`extend_rows` of several band lists, [(bands, top, bottom), ...], in
+    one transfer."""
+    moves, plans = [], []
+    for bands, top, bottom in specs:
+        S = len(bands)
+        lh = bands[0].shape[1]
+        plan = []
+        for k, x in enumerate(bands):
+            parts = []
+
+            def rows(j, sl):
+                if 0 <= j < S:
+                    moves.append((bands[j][:, sl], x.device))
+                    return len(moves) - 1  # the index of its moved rows
+                n = len(range(*sl.indices(lh)))
+                return x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+
+            for h in range(-(-top // lh) if top > 0 else 0, 0, -1):  # farthest first
+                take = min(top - (h - 1) * lh, lh)
+                parts.append(rows(k - h, slice(lh - take, lh)))
+            parts.append(x)
+            for h in range(1, (-(-bottom // lh) if bottom > 0 else 0) + 1):
+                take = min(bottom - (h - 1) * lh, lh)
+                parts.append(rows(k + h, slice(0, take)))
+            plan.append(parts)
+        plans.append(plan)
+    moved = transfer(moves)
+    return [[torch.cat([moved[p] if isinstance(p, int) else p for p in parts], dim=1)
+             if len(parts) > 1 else parts[0] for parts in plan] for plan in plans]
+
+
 def extend_rows(bands: Bands, top: int, bottom: int) -> Bands:
     """Each band with `top` rows of the bands above it and `bottom` rows of
     the bands below it (the multi-hop `ppermute` of JAX spatial.py:74-103:
     a halo wider than a band takes rows from farther bands).  Rows beyond
     the frame are zeros; callers mask them."""
-    S = len(bands)
-    lh = bands[0].shape[1]
-    out = []
-    for k, x in enumerate(bands):
-        parts = []
-
-        def rows(j, sl):
-            if 0 <= j < S:
-                return bands[j][:, sl].to(x.device)
-            n = len(range(*sl.indices(lh)))
-            return x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
-
-        for h in range(-(-top // lh) if top > 0 else 0, 0, -1):  # farthest first
-            take = min(top - (h - 1) * lh, lh)
-            parts.append(rows(k - h, slice(lh - take, lh)))
-        parts.append(x)
-        for h in range(1, (-(-bottom // lh) if bottom > 0 else 0) + 1):
-            take = min(bottom - (h - 1) * lh, lh)
-            parts.append(rows(k + h, slice(0, take)))
-        out.append(torch.cat(parts, dim=1) if len(parts) > 1 else x)
-    return out
+    return _exchange([(bands, top, bottom)])[0]
 
 
-def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The sum of the bands' tensors, on the first band's device (every
-    band reads the same value; integer sums are exact in any order)."""
-    dev = parts[0].device
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(dev)
-    return total
+def psum(parts: Sequence) -> object:
+    """The sum of the bands' tensors, or of each tuple of tensors as
+    `lax.psum` sums a tree, on the first band's device (every band reads the
+    same value; integer sums are exact in any order)."""
+    tree = isinstance(parts[0], tuple)
+    rows = [p if tree else (p,) for p in parts]
+    moved = iter(transfer([(t, rows[0][0].device) for r in rows[1:] for t in r]))
+    totals = list(rows[0])
+    for _ in rows[1:]:
+        totals = [t + next(moved) for t in totals]
+    return tuple(totals) if tree else totals[0]
 
 
-def all_gather(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
-    """The bands' tensors concatenated along `dim`, on the first band's
-    device."""
-    dev = parts[0].device
-    return torch.cat([p.to(dev) for p in parts], dim=dim)
+def all_gather(parts: Sequence[torch.Tensor], dim: int,
+               devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The bands' tensors concatenated along `dim`, on each of `devices`."""
+    moved = transfer([(p, d) for d in devices for p in parts])
+    n = len(parts)
+    return [torch.cat(moved[i * n:(i + 1) * n], dim=dim) for i in range(len(devices))]
+
+
+def broadcast(value: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """`value` on each of `devices`."""
+    return transfer([(value, d) for d in devices])
+
+
+def scatter_rows(frames: Sequence[torch.Tensor], devices: Sequence[torch.device],
+                 starts: Sequence[int], rows: int) -> List[Bands]:
+    """Of each (B, H, ...) frame, rows [starts[k], starts[k] + rows) on
+    devices[k]: one band list a frame."""
+    moved = transfer([(f[:, s:s + rows], d) for f in frames for s, d in zip(starts, devices)])
+    n = len(devices)
+    return [moved[i * n:(i + 1) * n] for i in range(len(frames))]
+
+
+def gather(out: Dict[str, object], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A step's outputs on `device`: each list of bands concatenated along
+    the rows, every other value moved there."""
+    leaves = [t for v in out.values() for t in (v if isinstance(v, list) else [v])]
+    moved = iter(transfer([(t, device) for t in leaves]))
+    got = {}
+    for k, v in out.items():
+        got[k] = torch.cat([next(moved) for _ in v], dim=1) if isinstance(v, list) else next(moved)
+    return got
+
+
+# The functions above are the only ones that move tensors between devices
+# (tests/test_torch_compiled.py reads this module to hold it so): there a
+# split capture of the band program ends its per-device graphs.
+COLLECTIVES = ("_exchange", "extend_rows", "psum", "all_gather", "broadcast", "scatter_rows",
+               "gather")
 
 
 def _by_device(bands: Bands) -> List[List[int]]:
@@ -149,7 +199,7 @@ def _pyrdown_band(bands: Bands) -> Bands:
     Band heights must be even (`validate_spatial_shapes`)."""
     S = len(bands)
     lh, W = bands[0].shape[1:]
-    x = [b.to(torch.float32) for b in bands]
+    x = [b.float() for b in bands]
     ext = extend_rows(x, 2, 2)  # (B, lh + 4, W)
     out = []
     for k in range(S):
@@ -160,7 +210,7 @@ def _pyrdown_band(bands: Bands) -> Bands:
             e = torch.cat([e[:, :lh + 2], x[k][:, lh - 2:lh - 1], x[k][:, lh - 3:lh - 2]], dim=1)
         e = F.pad(e, (2, 2), mode="reflect")  # columns: numpy's "reflect"
         acc = _taps_stride2(_taps_stride2(e, 1, lh // 2), 2, (W + 1) // 2)
-        out.append(torch.floor((acc + 128.0) * (1.0 / 256.0)).to(torch.uint8))
+        out.append(torch.floor((acc + 128.0) * (1.0 / 256.0)).byte())
     return out
 
 
@@ -210,8 +260,8 @@ def _band_blocks(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int,
     nbh, nbw = _block_grid(H, W, bs)
     Tmax = _band_tmax(H, S, bs)
     ext_b = max(0, Tmax * bs + bs - 1 - lh)
-    prev_ext = extend_rows([p[:, :, : nbw * bs] for p in prev_bands], 0, ext_b)
-    curr_ext = extend_rows(curr_bands, above, ext_b + below)
+    prev_ext, curr_ext = _exchange([([p[:, :, : nbw * bs] for p in prev_bands], 0, ext_b),
+                                    (curr_bands, above, ext_b + below)])
     prev_blk, curr_blk, gb0s, valid = [], [], [], []
     for k in range(S):
         gb0, gb1 = _band_rows(k, lh, H, bs)
@@ -286,7 +336,7 @@ def banded_threestep_field(prev_bands: Bands, curr_bands: Bands, H: int, W: int,
     field = [None] * len(prev_bands)
     for ks, vol, origins in groups:
         d = threestep_walk(volume_evaluator(vol, origins, R), origins, H, W, bs, sw)
-        _unstack(torch.stack([d[..., 1], d[..., 0]], dim=-1).to(torch.int32), ks, field)
+        _unstack(torch.stack([d[..., 1], d[..., 0]], dim=-1).int(), ks, field)
     return field, valid, gb0s, _no_hits(prev_bands)
 
 
@@ -351,11 +401,11 @@ def _first_params_psum(fields: Bands, valid: List[torch.Tensor]) -> torch.Tensor
     as JAX spatial.py:396-413 divides them.  (B, 6) float32."""
     parts = []
     for f, v in zip(fields, valid):
-        m = v[:, None].to(torch.int64)
+        m = v[:, None].long()
         n = (m.sum() * f.shape[2]).expand(f.shape[0])
-        parts.append(torch.stack([(f[..., 0].to(torch.int64) * m).sum(dim=(1, 2)),
-                                  (f[..., 1].to(torch.int64) * m).sum(dim=(1, 2)), n], dim=1))
-    sums = psum(parts).to(torch.float32)
+        parts.append(torch.stack([(f[..., 0].long() * m).sum(dim=(1, 2)),
+                                  (f[..., 1].long() * m).sum(dim=(1, 2)), n], dim=1))
+    sums = psum(parts).float()
     a0 = sums[:, 0] / sums[:, 2]
     b0 = sums[:, 1] / sums[:, 2]
     z = torch.zeros_like(a0)
@@ -377,21 +427,26 @@ def _outlier_inliers(fields: Bands, affine_bands: Bands, valid: List[torch.Tenso
     per-cell L1 errors of every band, +inf in padding rows, all-gathered and
     sorted per pair, the threshold at `(n - int(f*n)) % n` as in JAX
     spatial.py:440-463.  Returns each band's INLIER mask."""
-    diffs = [(f.to(torch.int32) - a.to(torch.int32)).abs().sum(dim=-1)
-             for f, a in zip(fields, affine_bands)]
-    errs = [torch.where(v[:, None], d.to(torch.float32), float("inf"))
-            for d, v in zip(diffs, valid)]
-    gathered = all_gather(errs, dim=1)  # (B, S*Tmax, nbw)
+    diffs = [(f.int() - a.int()).abs().sum(dim=-1) for f, a in zip(fields, affine_bands)]
+    errs = [torch.where(v[:, None], d.float(), float("inf")) for d, v in zip(diffs, valid)]
+    (gathered,) = all_gather(errs, 1, [errs[0].device])  # (B, S*Tmax, nbw)
     flat = torch.sort(gathered.reshape(gathered.shape[0], -1), dim=1).values
     threshold = flat[:, (n_cells - int(outlier_fraction * n_cells)) % n_cells]
-    return [~(d.to(torch.float32) > threshold.to(d.device)[:, None, None]) for d in diffs]
+    on = dict(zip(_devices(diffs), broadcast(threshold, _devices(diffs))))
+    return [~(d.float() > on[d.device][:, None, None]) for d in diffs]
 
 
-def _affine_band(full: torch.Tensor, Tmax: int, gb0: int, device) -> torch.Tensor:
+def _devices(bands: Bands) -> List[torch.device]:
+    """The bands' devices, each once, in band order."""
+    return list(dict.fromkeys(b.device for b in bands))
+
+
+def _affine_bands(full: torch.Tensor, Tmax: int, gb0s: List[int], bands: Bands) -> Bands:
     """Rows [gb0, gb0+Tmax) of the dense affine field `full`
-    (B, nbh, nbw, 2), zero past its last row."""
+    (B, nbh, nbw, 2), zero past its last row, on each band's device."""
     padded = torch.cat([full, full.new_zeros((full.shape[0], Tmax) + tuple(full.shape[2:]))], 1)
-    return padded[:, gb0:gb0 + Tmax].to(device)
+    (aff,) = scatter_rows([padded], [b.device for b in bands], gb0s, Tmax)
+    return aff
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +485,7 @@ def spatial_gme_step(prev_bands: Bands, curr_bands: Bands, cfg: GMEConfig, H: in
         edge_hits = [a + b for a, b in zip(edge_hits, ehits)]
         Tmax = field[0].shape[1]
         full = get_motion_field_affine((nbh, nbw), parameters)
-        aff = [_affine_band(full, Tmax, g, f.device) for f, g in zip(field, gb0s)]
+        aff = _affine_bands(full, Tmax, gb0s, field)
         inlier = _outlier_inliers(field, aff, valid, cfg.outlier_fraction, nbh * nbw)
         parameters = _fit_psum(field, [m & v[:, None] for m, v in zip(inlier, valid)], gb0s,
                                cfg.coord_stride)
@@ -443,15 +498,17 @@ def spatial_gme_step(prev_bands: Bands, curr_bands: Bands, cfg: GMEConfig, H: in
     # the original value).
     lh = prev_bands[0].shape[1]
     warp_bs = H // nbh_f  # reference motion.py:303 derives bs from the ratio
-    compensated, sses, prev_full = [], [], {}
+    devs = _devices(prev_bands)
+    # The broadcast first: its transfer and the gather's are one step.
+    field_on = dict(zip(devs, broadcast(model_motion_field, devs)))
+    prev_full = dict(zip(devs, all_gather(prev_bands, 1, devs)))
+    compensated, sses = [], []
     for k, (p, c) in enumerate(zip(prev_bands, curr_bands)):
         dev = p.device
         B = p.shape[0]
-        if dev not in prev_full:
-            prev_full[dev] = all_gather([b.to(dev) for b in prev_bands], dim=1).reshape(B, H * W)
         rr = k * lh + torch.arange(lh, dtype=torch.int32, device=dev)[:, None]
         cc = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-        d = model_motion_field.to(device=dev, dtype=torch.int32)
+        d = field_on[dev].int()
         d_px = d[:, (rr // warp_bs).clamp(0, nbh_f - 1).long(),
                  (cc // warp_bs).clamp(0, nbw_f - 1).long()]  # (B, lh, W, 2)
         covered = (rr < nbh_f * warp_bs) & (cc < nbw_f * warp_bs)
@@ -459,20 +516,22 @@ def spatial_gme_step(prev_bands: Bands, curr_bands: Bands, cfg: GMEConfig, H: in
         src_c = cc - d_px[..., 0]
         ok = covered & (src_r >= 0) & (src_c >= 0) & (src_r < H) & (src_c < W)
         idx = src_r.clamp(0, H - 1) * W + src_c.clamp(0, W - 1)
-        warped = prev_full[dev].gather(1, idx.reshape(B, -1).long()).reshape(B, lh, W)
+        warped = prev_full[dev].reshape(B, H * W).gather(1, idx.reshape(B, -1).long())
+        warped = warped.reshape(B, lh, W)
         comp = torch.where(ok, warped, p)
         compensated.append(comp)
         sses.append(sse(c, comp))
 
+    # The bands' edge-hit counts are disjoint: each counts its owned rows only.
+    sse_total, hits = psum(list(zip(sses, edge_hits)))
     return {
         "parameters": parameters,
         "model_motion_field": model_motion_field,
         "compensated": compensated,
         "diff_curr_prev": [frame_difference(c, p) for p, c in zip(prev_bands, curr_bands)],
         "diff_curr_comp": [frame_difference(c, m) for m, c in zip(compensated, curr_bands)],
-        "psnr": psnr_from_sse(psum(sses), H * W),
-        # The bands' counts are disjoint: each counts its owned rows only.
-        "volume_edge_hits": psum(edge_hits),
+        "psnr": psnr_from_sse(sse_total, H * W),
+        "volume_edge_hits": hits,
     }
 
 
@@ -519,20 +578,22 @@ def spatial_program(prev: torch.Tensor, curr: torch.Tensor,
     lh = H // len(devices[0])
     out_dev = devices[0][0]
     n = prev.shape[0] // len(devices)
-    outs = []
-    for d, slots in enumerate(devices):
-        p, c = prev[d * n:(d + 1) * n], curr[d * n:(d + 1) * n]
-        o = spatial_gme_step([p[:, s * lh:(s + 1) * lh].to(dev) for s, dev in enumerate(slots)],
-                             [c[:, s * lh:(s + 1) * lh].to(dev) for s, dev in enumerate(slots)],
-                             cfg, H, W)
-        outs.append({k: all_gather(v, dim=1).to(out_dev) if isinstance(v, list)
-                     else v.to(out_dev) for k, v in o.items()})
+    shards = [scatter_rows((prev[d * n:(d + 1) * n], curr[d * n:(d + 1) * n]), slots,
+                           [s * lh for s in range(len(slots))], lh)
+              for d, slots in enumerate(devices)]
+    outs = [gather(spatial_gme_step(p, c, cfg, H, W), out_dev) for p, c in shards]
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 # The JAX package's `jax.jit(sharded)` (JAX spatial.py:624-658): one
-# captured CUDA graph per (mesh, cfg, H, W, frame shape, device).
+# captured CUDA graph per (mesh, cfg, H, W, frame shape, device) where every
+# slot names one device ...
 spatial_program_jit = compiled(spatial_program, static_argnames=("devices", "cfg", "H", "W"))
+# ... and, across devices, a chain of per-device graphs split at the
+# collectives (`utils.compiled`, split=True).  On one device it is called
+# by name, to hold the split to the single graph.
+spatial_program_segmented = compiled(spatial_program, static_argnames=("devices", "cfg", "H", "W"),
+                                     split=True)
 
 
 def _check_batch(mesh: Mesh, B: int) -> None:
@@ -554,20 +615,24 @@ def make_spatial_pipeline_eager(mesh: Mesh, cfg: GMEConfig, H: int, W: int):
     return step
 
 
-def make_spatial_pipeline(mesh: Mesh, cfg: GMEConfig, H: int, W: int):
-    """The fully sharded step, the contract of `make_spatial_pipeline_eager`.
-    Where every slot names one device, the frames go to it and the step is
-    the compiled `spatial_program_jit` (one CUDA graph a key on a card, the
-    program itself on the CPU); a mesh over several devices gets the eager
-    step (module docstring)."""
-    eager = make_spatial_pipeline_eager(mesh, cfg, H, W)  # checks the shapes
+def _program_for(mesh: Mesh):
+    """The compiled band program of a mesh: one graph where every slot
+    names one device, else the segmented program."""
     slots = {dev for row in mesh.devices for dev in row}
-    if len(slots) > 1:
-        return eager
-    (dev,) = slots
+    return spatial_program_jit if len(slots) == 1 else spatial_program_segmented
+
+
+def make_spatial_pipeline(mesh: Mesh, cfg: GMEConfig, H: int, W: int):
+    """The fully sharded step, the contract of `make_spatial_pipeline_eager`,
+    compiled (`_program_for`; on the CPU the program itself runs).  The
+    frames go to the first slot's device first."""
+    validate_spatial_shapes(H, mesh.shape[SPACE_AXIS], cfg, W)
+    program = _program_for(mesh)
+    dev = mesh.devices[0][0]
 
     def step(prev: torch.Tensor, curr: torch.Tensor) -> Dict[str, torch.Tensor]:
         _check_batch(mesh, prev.shape[0])
-        return spatial_program_jit(prev.to(dev), curr.to(dev), mesh.devices, cfg, H, W)
+        prev, curr = (broadcast(x, [dev])[0] for x in (prev, curr))
+        return program(prev, curr, mesh.devices, cfg, H, W)
 
     return step

@@ -32,6 +32,25 @@ their replays run one after another on the caller's stream, and every
 output is copied before the next replay, so no entry reads memory that
 another's replay wrote.  `clear()` frees every graph and the pools.
 
+A compiled function made with `split=True` may also take, and write,
+tensors on several devices: its body moves data between devices only
+through `transfer` (in the port, the band program's collectives,
+`parallel/spatial.py`).  A cross-device copy orders the two devices'
+streams against each other, which no capture on one device can hold, so
+its capture splits there: between two transfers each device the body runs
+on has one graph (a segment), captured on that device's side stream in its
+pool, and each transfer is a step of copies run by the host between the
+segments, from tensors the segments wrote into buffers the entry keeps.
+Adjacent transfers with no device work between them form one step.  A
+replay makes the other devices' current streams wait on the caller's,
+replays each segment on its device's current stream (the devices run their
+segments at the same time), runs each step's copies on those streams (a
+copy between devices puts a two-way barrier between them), and makes the
+caller's stream wait on every other device.  Such a function captures this
+way on one device too.  On the CPU its body runs with the transfers
+copying, and `last_entry` holds the plan of segments and steps, without
+graphs.
+
 `while_loop(cond, body, state, chunk)` is the counterpart of
 `lax.while_loop` for loops whose body is masked (a finished element does
 not change): while one read of `cond` on the host is true, `chunk` steps.
@@ -57,10 +76,13 @@ import inspect
 import os
 import threading
 import traceback
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from gme_tpu_torch.ops import cuda_kernels
 from gme_tpu_torch.utils import guards
@@ -70,8 +92,8 @@ REPLAY_LAUNCHES: Dict[str, int] = {name: 0 for name in cuda_kernels.LAUNCHES}
 MAX_ENTRIES = 8
 
 # Set while a compiled function's body runs for its warm-up or capture: a
-# compiled function called then runs inline, and `while_loop` splits the
-# capture.
+# compiled function called then runs inline, `while_loop` splits the
+# capture, and `transfer` splits a split capture.
 _TRACING: contextvars.ContextVar = contextvars.ContextVar("gme_tpu_torch_compiled", default=None)
 
 
@@ -145,26 +167,62 @@ def _failing_line(tb) -> str:
 
 @dataclass
 class _Graph:
-    graph: Any  # torch.cuda.CUDAGraph
+    graph: Any  # torch.cuda.CUDAGraph; None in a plan counted on the CPU
     launches: Dict[str, int]
     flag: Optional[torch.Tensor] = None  # a loop graph's condition, read before each replay
 
 
 @dataclass
+class _Step:
+    """A split entry's collective step: copies (dst, src) run by the host
+    between two segments, from tensors the segments before wrote into
+    buffers the entry keeps (so eager work never reuses them)."""
+    copies: List[Tuple[torch.Tensor, torch.Tensor]]
+
+    def run(self) -> None:
+        for dst, src in self.copies:
+            dst.copy_(src)
+
+
+@dataclass
 class Entry:
-    """One key's captured graphs.  `graphs` in order; a loop graph (one with
-    a `flag`) replays while its flag, read before each replay, is true."""
+    """One key's captured plan: graphs in order (a loop graph, one with a
+    `flag`, replays while its flag, read before each replay, is true) and,
+    in a split entry, collective steps between them.  `devices` are the
+    devices a split entry's segments run on, the caller's first."""
     inputs: List[torch.Tensor]
     outputs: List[torch.Tensor]
     out_struct: Any
-    graphs: List[_Graph] = field(default_factory=list)
+    plan: List[Union[_Graph, _Step]] = field(default_factory=list)
+    devices: Tuple[torch.device, ...] = ()
+    # A split capture's segments that captured nothing: never replayed, kept
+    # until release, since resetting a graph gives up its hold on the pool
+    # that the next capture on that device shares.
+    empty: List[Any] = field(default_factory=list)
     host_reads: int = 0  # of the last call
     launches: Dict[str, int] = field(default_factory=dict)  # of the last call
 
+    @property
+    def graphs(self) -> List[_Graph]:
+        return [g for g in self.plan if isinstance(g, _Graph)]
+
+    @property
+    def steps(self) -> List[_Step]:
+        return [s for s in self.plan if isinstance(s, _Step)]
+
     def replay(self) -> None:
+        """Replay on the caller's current streams; the caller's device is
+        the current device."""
+        caller = torch.cuda.current_stream()
+        others = [torch.cuda.current_stream(d) for d in self.devices[1:]]
+        for s in others:
+            s.wait_stream(caller)
         reads = 0
         launched = collections.Counter()
-        for g in self.graphs:
+        for g in self.plan:
+            if isinstance(g, _Step):
+                g.run()
+                continue
             while g.flag is None or bool(g.flag):
                 g.graph.replay()
                 launched.update(g.launches)
@@ -173,15 +231,23 @@ class Entry:
                 reads += 1
             if g.flag is not None:
                 reads += 1  # the read that ended the loop
+        for s in others:
+            caller.wait_stream(s)
         for name, n in launched.items():
             REPLAY_LAUNCHES[name] += n
         self.host_reads = reads
         self.launches = {k: launched.get(k, 0) for k in REPLAY_LAUNCHES}
 
     def release(self) -> None:
+        if self.steps:  # the steps' buffers may still be in use on any device
+            for d in self.devices:
+                torch.cuda.synchronize(d)
         for g in self.graphs:
             g.graph.reset()
-        self.graphs.clear()
+        for g in self.empty:
+            g.reset()
+        self.empty.clear()
+        self.plan.clear()
         self.inputs.clear()
         self.outputs.clear()
 
@@ -228,6 +294,128 @@ def _side_stream(device: torch.device):
     return _STREAMS[device]
 
 
+def _is_view(func) -> bool:
+    returns = func._schema.returns
+    return bool(returns) and all(r.alias_info is not None and not r.alias_info.is_write
+                                 for r in returns)
+
+
+class _WorkWatch(TorchDispatchMode):
+    """Records the devices of every tensor an op other than a view reads or
+    writes: the devices that have work in the open segments."""
+
+    def __init__(self):
+        super().__init__()
+        self.devices = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not _is_view(func):
+            self.devices.update(t.device for t in tree_leaves((args, kwargs, out))
+                                if isinstance(t, torch.Tensor))
+        return out
+
+
+class _Split:
+    """A split capture (module docstring): the plan of segments and steps.
+    `pools` maps each device the body runs on to its memory pool; with no
+    pools (the CPU) nothing is captured, the body runs and each transfer
+    copies at once, so the plan is counted."""
+
+    def __init__(self, pools: Optional[Dict[torch.device, Any]] = None):
+        self.pools = pools
+        self.plan: List[Union[_Graph, _Step]] = []
+        self.empty: List[Any] = []  # graphs that captured nothing (`Entry.empty`)
+        self.watch = _WorkWatch()
+        self._open: Dict[torch.device, Any] = {}
+        self._before: Dict[str, int] = {}
+
+    def begin(self) -> None:
+        self._before = dict(cuda_kernels.LAUNCHES)
+        for d, pool in (self.pools or {}).items():
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.device(d):
+                # relaxed: ending one device's segment instantiates its graph
+                # while the other devices' captures are still open, which
+                # thread_local refuses (cudaErrorStreamCaptureUnsupported).
+                # A host read still fails (it synchronises a capturing
+                # stream), and the driver's other threads are free as under
+                # thread_local.
+                g.capture_begin(pool=pool, capture_error_mode="relaxed")
+            self._open[d] = g
+        # After the captures begin: `capture_begin` fills the random
+        # generator's seed and offset, which is no work of the body.
+        self.watch.devices.clear()
+
+    def end(self) -> None:
+        """End the open segments; keep one graph per device that had work."""
+        launches = {k: v - self._before[k] for k, v in cuda_kernels.LAUNCHES.items()
+                    if v != self._before[k]}
+        # The capture recorded these launches without running them.
+        cuda_kernels.LAUNCHES.update(self._before)
+        worked = self.watch.devices
+        outside = {d for d in worked if d.type == "cuda"} - set(self.pools or worked)
+        if outside:  # the caller aborts
+            raise RuntimeError(f"work on devices outside the capture: {sorted(map(str, outside))}")
+        kept = []
+        for d in list(self._open):
+            g = self._open.pop(d)
+            with torch.cuda.device(d):
+                if d in worked:
+                    g.capture_end()
+                    kept.append(_Graph(g, {}))
+                else:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")  # "the CUDA Graph is empty"
+                        g.capture_end()
+                    self.empty.append(g)
+        if self.pools is None:
+            kept = [_Graph(None, {}) for _ in sorted(map(str, worked))]
+        if kept:
+            kept[0].launches = launches
+        self.plan.extend(kept)
+
+    def transfer(self, moves: Sequence[Tuple[torch.Tensor, torch.device]]) -> List[torch.Tensor]:
+        srcs = [t.contiguous() for t, _ in moves]
+        self.end()
+        dsts = [torch.empty(s.shape, dtype=s.dtype, device=d) for s, (_, d) in zip(srcs, moves)]
+        if self.pools is None:
+            for dst, src in zip(dsts, srcs):
+                dst.copy_(src)
+        if self.plan and isinstance(self.plan[-1], _Step):
+            self.plan[-1].copies.extend(zip(dsts, srcs))  # no device work since the last step
+        else:
+            self.plan.append(_Step(list(zip(dsts, srcs))))
+        self.begin()
+        return dsts
+
+    def abort(self) -> None:
+        cuda_kernels.LAUNCHES.update(self._before)
+        open_, self._open = self._open, {}
+        for d, g in open_.items():
+            with torch.cuda.device(d), contextlib.suppress(RuntimeError):
+                g.capture_end()
+            g.reset()
+        for g in self.plan:
+            if isinstance(g, _Graph) and g.graph is not None:
+                g.graph.reset()
+        for g in self.empty:
+            g.reset()
+
+
+def transfer(moves: Sequence[Tuple[torch.Tensor, torch.device]]) -> List[torch.Tensor]:
+    """Each (tensor, device) of `moves` on its device: the one way the body
+    of a compiled function made with `split=True` moves data between
+    devices.  Eagerly `tensor.to(device)`; inside a split capture a
+    collective step (module docstring), whose results are buffers of the
+    entry, copies even on one device."""
+    split = _TRACING.get()
+    if isinstance(split, _Split):
+        return split.transfer(moves)
+    return [t.to(d) for t, d in moves]
+
+
 def while_loop(cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...], chunk: int):
     """Run `body` on the tuple of tensors `state` in chunks of `chunk`
     steps while `cond(state)`, a 0-dim bool tensor, is true before a chunk;
@@ -259,8 +447,9 @@ def while_loop(cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...], 
 class Compiled:
     """A function compiled into CUDA graphs per key (module docstring)."""
 
-    def __init__(self, fn: Callable, static_argnames: Tuple[str, ...] = ()):
+    def __init__(self, fn: Callable, static_argnames: Tuple[str, ...] = (), split: bool = False):
         self.fn = fn
+        self.split = split
         self.name = getattr(fn, "__qualname__", repr(fn))
         self.static_argnames = tuple(static_argnames)
         self.signature = inspect.signature(fn)
@@ -295,18 +484,20 @@ class Compiled:
     def __call__(self, *args, **kwargs):
         static, dynamic, leaves, struct = self._split(args, kwargs)
         devices = {t.device for t in leaves}
-        if (_TRACING.get() is not None or guards.checks_enabled()
-                or not any(d.type == "cuda" for d in devices)):
+        if _TRACING.get() is not None or guards.checks_enabled():
             return self.fn(*args, **kwargs)
-        if len(devices) != 1:
+        if not any(d.type == "cuda" for d in devices):
+            return self._count_split(args, kwargs) if self.split else self.fn(*args, **kwargs)
+        if len(devices) != 1 and not self.split:
             raise ValueError(f"{self.name}: tensors on different devices: "
                              f"{sorted(map(str, devices))}")
-        device = devices.pop()
+        device = next(t.device for t in leaves if t.device.type == "cuda")
         key = _key(static, struct, leaves)
         with self._lock:
             entry = self.entries.get(key)
             if entry is None:
-                entry = self._capture(static, struct, leaves, device)
+                capture = self._capture_split if self.split else self._capture
+                entry = capture(static, struct, leaves, device)
                 self.entries[key] = entry
                 while len(self.entries) > MAX_ENTRIES:
                     self.entries.popitem(last=False)[1].release()
@@ -372,7 +563,64 @@ class Compiled:
                 _TRACING.reset(token)
             torch.cuda.current_stream(device).wait_stream(stream)
         outputs, out_struct = _flatten(out)
-        return Entry(inputs, outputs, out_struct, sess.graphs)
+        return Entry(inputs, outputs, out_struct, sess.graphs, (device,))
+
+    def _count_split(self, args, kwargs):
+        """The body on the CPU under a split session that captures nothing:
+        the transfers copy, and `last_entry` holds the plan."""
+        split = _Split()
+        token = _TRACING.set(split)
+        try:
+            with split.watch:
+                split.begin()
+                out = self.fn(*args, **kwargs)
+                split.end()
+        finally:
+            _TRACING.reset(token)
+        self.last_entry = Entry([], [], None, split.plan)
+        return out
+
+    def _capture_split(self, static, struct, leaves, device) -> Entry:
+        inputs = [torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t) for t in leaves]
+        # Warm-up: one eager run on the current streams, watched for the
+        # devices the body runs on.
+        watch = _WorkWatch()
+        token = _TRACING.set("warm-up")
+        try:
+            with torch.cuda.device(device), watch:
+                self._call_body(static, struct, inputs)
+        finally:
+            _TRACING.reset(token)
+        devices = [device] + sorted({d for d in watch.devices if d.type == "cuda"} - {device},
+                                    key=str)
+        for d in devices:
+            torch.cuda.synchronize(d)
+            if d not in self._pools:
+                self._pools[d] = torch.cuda.graph_pool_handle()
+        split = _Split({d: self._pools[d] for d in devices})
+        with contextlib.ExitStack() as stack:
+            for d in devices:
+                side = _side_stream(d)
+                side.wait_stream(torch.cuda.current_stream(d))
+                stack.enter_context(torch.cuda.stream(side))
+            stack.enter_context(torch.cuda.device(device))
+            token = _TRACING.set(split)
+            try:
+                with split.watch:
+                    split.begin()
+                    out = self._call_body(static, struct, inputs)
+                    split.end()
+            except Exception as e:
+                split.abort()
+                raise CaptureError(
+                    f"compiled {self.name}: the CUDA graph capture failed at "
+                    f"{_failing_line(e.__traceback__)}: {type(e).__name__}: {e}") from e
+            finally:
+                _TRACING.reset(token)
+        for d in devices:
+            torch.cuda.current_stream(d).wait_stream(_side_stream(d))
+        outputs, out_struct = _flatten(out)
+        return Entry(inputs, outputs, out_struct, split.plan, tuple(devices), split.empty)
 
     def clear(self) -> None:
         """Free every entry's graphs and buffers, and the memory pools."""
@@ -384,6 +632,7 @@ class Compiled:
             self.last_entry = None
 
 
-def compiled(fn: Callable, static_argnames: Tuple[str, ...] = ()) -> Compiled:
-    """`fn` compiled per key into CUDA graphs (module docstring)."""
-    return Compiled(fn, static_argnames)
+def compiled(fn: Callable, static_argnames: Tuple[str, ...] = (), split: bool = False) -> Compiled:
+    """`fn` compiled per key into CUDA graphs; with `split`, a chain of
+    per-device segments and collective steps (module docstring)."""
+    return Compiled(fn, static_argnames, split)

@@ -331,23 +331,25 @@ def _spatial_pairs(seed=4, B=2, H=64, W=96):
 def test_spatial_program_reads_nothing_back(monkeypatch, space, procedure):
     """The lockstep band program, every slot one device, reads no tensor on
     the host and makes no tensor from host data but 0-dim scalars: the band
-    origins are filled on the device, so the program captures whole."""
+    origins are filled on the device, so the program captures whole.  So
+    does the segmented program, its split session counting its steps."""
     prev, curr = _spatial_pairs()
     cfg = GMEConfig(searching_procedure=procedure)
     mesh = make_mesh(1, space, ["cpu"] * space)
-    mode = _HostTraffic()
-    _watch(monkeypatch, mode)
-    with mode:
-        spatial.spatial_program(prev, curr, mesh.devices, cfg, *prev.shape[1:])
-    assert mode.uploads == []
-    assert mode.reads == 0
+    for program in (spatial.spatial_program, spatial.spatial_program_segmented):
+        mode = _HostTraffic()
+        _watch(monkeypatch, mode)
+        with mode:
+            program(prev, curr, mesh.devices, cfg, *prev.shape[1:])
+        assert mode.uploads == [], program
+        assert mode.reads == 0, program
 
 
 def test_compiled_spatial_step_equals_its_eager_body():
     """Over slots that all name one device `make_spatial_pipeline` is the
     compiled band program (its body on the CPU), equal to the eager step
     and to the 1x1 step; its key separates meshes of another shape, and a
-    mesh over two devices keeps the eager step."""
+    mesh over two devices gets the segmented program."""
     prev, curr = _spatial_pairs()
     H, W = prev.shape[1:]
     cfg = GMEConfig(search_impl="volume")
@@ -364,8 +366,81 @@ def test_compiled_spatial_step_equals_its_eager_body():
     keys = [spatial.spatial_program_jit.key(prev, curr, make_mesh(d, s, ["cpu"] * 4).devices,
                                             cfg, H, W) for d, s in ((1, 4), (2, 2), (4, 1))]
     assert len(set(keys)) == 3
+    assert spatial._program_for(make_mesh(2, 2, ["cpu"] * 4)) is spatial.spatial_program_jit
     two = make_mesh(1, 2, ["cpu", "meta"])
-    assert "make_spatial_pipeline_eager" in spatial.make_spatial_pipeline(
-        two, cfg, H, W).__qualname__
+    assert spatial._program_for(two) is spatial.spatial_program_segmented
     with pytest.raises(ValueError, match="must divide"):
         spatial.make_spatial_pipeline(make_mesh(2, 2, ["cpu"] * 4), cfg, H, W)(prev[:1], curr[:1])
+
+
+@pytest.mark.parametrize("data,space,steps", [(1, 2, 20), (1, 4, 20), (2, 2, 39)])
+def test_segmented_spatial_program_counts_its_steps(data, space, steps):
+    """The segmented band program on the CPU runs its split session, which
+    captures nothing there: the diamond step makes `steps` collective steps
+    (scatter; 2 pyramid levels x 2 frames; dense init: halos, psum; each of
+    2 levels: halos, affine rows, error gather, threshold, moments psum;
+    the field's broadcast with the previous frame's gather; the SSE and
+    edge-hit psum; the outputs' gather; each data shard its own), a segment
+    before each and after the last, and equals the eager program and the
+    1x1 step."""
+    prev, curr = _spatial_pairs(B=2)
+    H, W = prev.shape[1:]
+    cfg = GMEConfig(search_impl="volume")
+    mesh = make_mesh(data, space, ["cpu"] * (data * space))
+    got = spatial.spatial_program_segmented(prev, curr, mesh.devices, cfg, H, W)
+    entry = spatial.spatial_program_segmented.last_entry
+    assert len(entry.steps) == steps
+    assert len(entry.graphs) == steps + 1 - (data - 1)  # the shards' scatters are one step
+    assert all(s.copies for s in entry.steps)
+    assert all(g.graph is None for g in entry.graphs)
+    want = spatial.make_spatial_pipeline_eager(mesh, cfg, H, W)(prev, curr)
+    one = tgme.gme_pipeline_batch(prev, curr, cfg)
+    for k in want:
+        assert torch.equal(got[k], want[k]) and torch.equal(got[k], one[k]), k
+
+
+def test_split_session_merges_adjacent_transfers():
+    """Transfers with only views between them are one step; work between
+    two transfers makes a segment and a second step.  Eagerly a transfer is
+    `.to`; a compiled function without `split` runs its body on the CPU."""
+    def body(x):
+        a = x * 2
+        b, c = C.transfer([(a[:1], x.device), (a, x.device)])
+        d, = C.transfer([(c[1], x.device)])  # a view of a step's result
+        e = d + b[0]
+        f, = C.transfer([(e, x.device)])
+        return f
+
+    x = torch.arange(6.0).reshape(2, 3)
+    fn = C.compiled(body, split=True)
+    assert torch.equal(fn(x), body(x))
+    plan = fn.last_entry.plan
+    kinds = ["step" if isinstance(i, C._Step) else "segment" for i in plan]
+    assert kinds == ["segment", "step", "segment", "step"], kinds
+    assert [len(s.copies) for s in fn.last_entry.steps] == [3, 1]
+    assert C.transfer([(x, torch.device("cpu"))])[0] is x
+    assert torch.equal(C.compiled(body)(x), body(x)) and C.compiled(body).last_entry is None
+
+
+def test_only_the_collectives_move_tensors_between_devices():
+    """Every `.to(`, `.copy_(` and `transfer(` of `parallel/spatial.py`
+    lies inside one of its collectives: a split capture ends its graphs at
+    the collectives only, so a move elsewhere would sit inside a capture."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(spatial))
+    moves = {}
+    for top in tree.body:
+        for node in ast.walk(top):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", None)
+            if name in ("to", "copy_", "transfer"):
+                moves.setdefault(getattr(top, "name", "<module>"), []).append(
+                    (name, node.lineno))
+    outside = {k: v for k, v in moves.items() if k not in spatial.COLLECTIVES}
+    assert outside == {}, outside
+    assert set(moves) <= set(spatial.COLLECTIVES)
+    assert all(name == "transfer" for v in moves.values() for name, _ in v), moves

@@ -620,11 +620,16 @@ def test_direct_warps_equal_cpu(cuda):
 def test_mesh_across_cards_equals_one_card(cuda, tmp_path):
     """Meshes over distinct cards (rows and partial sums move between
     devices): data parallel, the spatial step and the driver's default
-    slots (the visible cards) equal the 1x1 step on the first card."""
+    slots (the visible cards) equal the 1x1 step on the first card.  The
+    spatial step there is the segmented band program (per-card graphs split
+    at the collectives): over two calls on different frames it equals its
+    eager body and the 1x1 step bit for bit, a replay launches what the
+    eager body launches and nothing eagerly, and the first call's outputs
+    are unchanged by the second."""
     from gme_tpu_torch.config import MeshConfig
+    from gme_tpu_torch.parallel import spatial
     from gme_tpu_torch.parallel.data_parallel import make_sharded_pipeline
     from gme_tpu_torch.parallel.mesh import make_mesh
-    from gme_tpu_torch.parallel.spatial import make_spatial_pipeline
 
     n = torch.cuda.device_count()
     if n < 2:
@@ -633,19 +638,27 @@ def test_mesh_across_cards_equals_one_card(cuda, tmp_path):
     rng = np.random.RandomState(8)
     H, W = 96 * n // 2, 84
     prev = rng.randint(0, 256, (n, H, W)).astype(np.uint8)
-    curr = np.stack([np.roll(p, (2, -1), (0, 1)) for p in prev])
-    p, c = torch.from_numpy(prev).to(cards[0]), torch.from_numpy(curr).to(cards[0])
+    calls = []
+    for shift in ((2, -1), (-3, 4)):
+        curr = np.stack([np.roll(p, shift, (0, 1)) for p in prev])
+        calls.append((torch.from_numpy(prev).to(cards[0]), torch.from_numpy(curr).to(cards[0])))
+        prev = np.roll(prev, (5, 7), (1, 2))
     cfg = GMEConfig(search_impl="volume")
-    want = gme_pipeline_batch(p, c, cfg)
-    runs = {
-        "data": make_sharded_pipeline(make_mesh(n, 1, cards), cfg),
-        "space": make_spatial_pipeline(make_mesh(1, n, cards), cfg, H, W),
-        "both": make_spatial_pipeline(make_mesh(2, n // 2, cards), cfg, H, W),
-    }
-    for name, step in runs.items():
-        got = step(p, c)
-        for k in want:
-            assert got[k].device == cards[0] and torch.equal(got[k], want[k]), (name, k)
+    meshes = {"space": make_mesh(1, n, cards), "both": make_mesh(2, n // 2, cards)}
+    runs = {"data": make_sharded_pipeline(make_mesh(n, 1, cards), cfg)}
+    runs.update({name: spatial.make_spatial_pipeline(m, cfg, H, W) for name, m in meshes.items()})
+    for p, c in calls:
+        want = gme_pipeline_batch(p, c, cfg)
+        for name, step in runs.items():
+            got = step(p, c)
+            for k in want:
+                assert got[k].device == cards[0] and torch.equal(got[k], want[k]), (name, k)
+    for name, m in meshes.items():
+        assert spatial._program_for(m) is spatial.spatial_program_segmented
+        _compiled_equals_eager(runs[name], spatial.make_spatial_pipeline_eager(m, cfg, H, W),
+                               calls)
+        entry = spatial.spatial_program_segmented.last_entry
+        assert len(entry.devices) == n and entry.steps, name
     clip = str(tmp_path / "clip.y4m")
     write_y4m(clip, [prev[0]] + [np.roll(prev[0], (i, -i), (0, 1)) for i in range(1, 5)])
     pcfg = PipelineConfig(gme=cfg, batch_size=2, write_images=False)
@@ -800,6 +813,43 @@ def test_compiled_spatial_step_equals_eager_and_one_card(cuda, space, sp):
         got, one = step(p, c), gme_pipeline_batch_eager(p, c, cfg)
         for k in one:
             assert torch.equal(got[k], one[k]), k
+
+
+@pytest.mark.parametrize("space", [2, 4])
+def test_segmented_spatial_program_on_one_card(cuda, space):
+    """Every slot on one card, called by name: the segmented band program
+    (graphs split at the collectives, each collective a step of copies)
+    equals the single-graph program, its eager body and the 1x1 step bit
+    for bit over two calls on different frames, with as many launches a
+    replay as the eager body and the steps the CPU counts (one pair makes
+    no segment before the first collective)."""
+    from gme_tpu_torch.models.gme import gme_pipeline_batch_eager
+    from gme_tpu_torch.parallel import spatial
+    from gme_tpu_torch.parallel.mesh import make_mesh
+
+    H, W = 96, 84
+    B = 2 if space == 2 else 1  # one pair: no device work before the first collective
+    cfg = GMEConfig(search_impl="volume")
+    mesh = make_mesh(1, space, [cuda] * space)
+    calls = []
+    for seed, shift in ((0, (3, -5)), (1, (-6, 9))):
+        prev, curr = _pan_pair(seed, H, W, shift)
+        calls.append((prev[:B].to(cuda), curr[:B].to(cuda)))
+
+    def segmented(p, c):
+        return spatial.spatial_program_segmented(p, c, mesh.devices, cfg, H, W)
+
+    _compiled_equals_eager(segmented, spatial.make_spatial_pipeline_eager(mesh, cfg, H, W),
+                           calls)
+    entry = spatial.spatial_program_segmented.last_entry
+    assert len(entry.steps) == 20 and len(entry.graphs) == 20 + (B > 1)
+    for p, c in calls:
+        got = segmented(p, c)
+        single = spatial.spatial_program_jit(p, c, mesh.devices, cfg, H, W)
+        one = gme_pipeline_batch_eager(p, c, cfg)
+        for k in one:
+            assert torch.equal(got[k], single[k]) and torch.equal(got[k], one[k]), k
+    assert len(spatial.spatial_program_jit.last_entry.graphs) == 1
 
 
 def test_profile_stages_runs_on_the_card(cuda):
