@@ -11,7 +11,8 @@ volume radius of 64 on 8 pairs, the default step on 24 pairs), run eagerly
 graphs (`get_motion_field_jit`, `gme_pipeline_batch`), it prints:
 
 - the host time of one call (median of `--reps` synchronised calls after two
-  warm-up calls, no profiler attached);
+  warm-up calls, no profiler attached), and the time a call of `--reps`
+  calls back to back with no synchronise between them (CUDA events);
 - the device's busy time in one profiled call: the union of the intervals of
   the device's own activity (kernels, copies, fills) that `torch.profiler`
   records, not the CPU-side operator rows, which hold their kernels' time a
@@ -83,6 +84,15 @@ def profile_path(torch, fn, reps):
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    # Back to back: CUDA events around `reps` calls with no synchronise
+    # between them, the rate a caller that keeps the card fed gets.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    events_ms = start.elapsed_time(end) / reps
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=acts) as prof:
@@ -95,7 +105,7 @@ def profile_path(torch, fn, reps):
         raise RuntimeError("the profiler recorded no device activity")
     wall_ms = float(np.median(walls)) * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_ms, "walls_ms": [w * 1e3 for w in walls],
+    return {"wall_ms": wall_ms, "walls_ms": [w * 1e3 for w in walls], "events_ms": events_ms,
             "device_busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e3 / wall_ms,
             "peak_gib": peak / 2**30, "reserved_gib": reserved / 2**30, "top_ms": [[name[:60], us / 1e3] for name, us in top]}
 
@@ -296,7 +306,8 @@ def main():
         r = profile_path(torch, fn, args.reps)
         result["paths"][path] = r
         top = ", ".join(f"{n} {ms:.2f}" for n, ms in r["top_ms"])
-        print(f"[path] {path}: host {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
+        print(f"[path] {path}: host {r['wall_ms']:.2f} ms, back to back {r['events_ms']:.2f} ms a "
+              f"call, device busy {r['device_busy_ms']:.2f} ms, "
               f"idle {r['idle_share']:.3f}, peak {r['peak_gib']:.2f} GiB, reserved "
               f"{r['reserved_gib']:.2f} GiB ({card}); largest: {top}",
               flush=True)

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
-the CUDA toolkit.  It builds the port's seven kernels from the sources in
-the checkout (one nvcc per source, side by side, with a one-thread
+the CUDA toolkit.  It builds the port's seven kernels, and the graph
+control of its loops, from the sources in the checkout (one nvcc per
+source, side by side, with a one-thread
 pointer-chase probe beside them; where the toolkit has cuobjdump, it fails
 unless the SASS of cost_volume_mse_block and of cost_volume_cross holds
 integer tensor-core instructions and every instantiation of
@@ -36,10 +37,14 @@ path through the entry points a user calls:
   720p step at B 24, `-sp 0/1/2` and radius 64 at B 8, the adaptive batch,
   `get_motion_field_jit` under each procedure, direct GME's level loop,
   the f32 fit), each against its eager body over two calls on different
-  frames: bit-equal, the first call's outputs unchanged by the second, as
-  many launches of each kernel a replay as the eager call, no rank map;
-  eager and compiled host ms, busy ms and idle share (torch.profiler),
-  graphs and host reads a call, peak memory, to chiprun_out/compiled.json;
+  frames (the `-sp 2` step and the 2D-log search also on a still pair and
+  at max_iters 3): bit-equal, the first call's outputs unchanged by the
+  second, as many launches of each kernel a replay as the eager call (a
+  loop's body, a WHILE node in the graph, counted from its counter on the
+  card), no rank map, one graph an entry and no host read but the adaptive
+  dispatch's own; eager and compiled host ms, busy ms and idle share
+  (torch.profiler), graphs, host reads and loop body runs a call, peak
+  memory, to compiled.json in the output directory;
 - the results driver (`process_video`, the port's main entry point, on the
   compiled step) over a 97-frame 720p y4m pan with images and without,
   resumed, and with the adaptive dispatch on a clip whose pairs partly
@@ -74,7 +79,7 @@ path through the entry points a user calls:
 
 Each 720p path runs with the launch counts set to 0 just before it and read
 just after (the wrappers' counts and the CUDA graph replays', which call no
-wrapper: `utils.compiled.REPLAY_LAUNCHES`), and fails unless every kernel
+wrapper: `utils.compiled.replay_launches()`), and fails unless every kernel
 of that path launched and no rank map was built.  Meanwhile each kernel's arguments are kept at every shape
 the path gives it (for the volume chase, a fixed subset of the cells), and
 at the end each kernel is held against its plain version on them.  It prints one
@@ -137,6 +142,8 @@ CHASE_ITERS = (1, 3, 4096)
 PROFILE_ATTEMPTS = 3
 # Synchronised calls whose median host time `[compiled]` reports.
 COMPILED_REPS = 5
+# The max_iters of `[compiled]`'s capped 2D-log calls.
+LOOP_CAP = 3
 # Cells of a volume-chase call that `counted()` keeps for `[paths]`: a volume
 # at radius 64 holds 66.6 KB a cell.
 CAPTURE_CELLS = 4096
@@ -507,10 +514,37 @@ RANK_MAP_BUILDERS = ("_succ_map_packed", "_succ_map_select")
 def launched(K):
     """Launches of each kernel since the counts were last set to 0: the
     wrappers' own (eager calls, a compiled function's warm-up) and those of
-    the CUDA graph replays, which call no wrapper."""
+    the CUDA graph replays, which call no wrapper (their loop bodies' read
+    from the counters on the card)."""
     from gme_tpu_torch.utils import compiled
 
-    return {k: K.LAUNCHES[k] + compiled.REPLAY_LAUNCHES[k] for k in K.LAUNCHES}
+    replayed = compiled.replay_launches()
+    return {k: K.LAUNCHES[k] + replayed[k] for k in K.LAUNCHES}
+
+
+def host_reads(torch, fn):
+    """Reads of a tensor's value by the host (`item`, `bool`, a copy to the
+    CPU) while `fn` runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Reads(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            leaves = [t for t in torch.utils._pytree.tree_leaves((args, kwargs))
+                      if isinstance(t, torch.Tensor)]
+            to_host = (isinstance(out, torch.Tensor) and out.device.type == "cpu"
+                       and any(t.is_cuda for t in leaves))
+            if func is torch.ops.aten._local_scalar_dense.default or to_host:
+                self.n += 1
+            return out
+
+    with Reads() as mode:
+        fn()
+    return mode.n
 
 
 def reset_counts(K):
@@ -1293,14 +1327,20 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
     (argument tuples on different frames): bit-equal outputs at every call,
     the first call's outputs unchanged by the later ones, as many launches
     of each kernel in a replay as in the eager call, every kernel of
-    `kernels` among them and no rank map built.  Then eager and compiled
-    host ms, busy ms and idle share, the graphs and host reads of a call,
-    and the peak memory with the graphs alive.  `chain` gives the entries a
-    call of a dispatch over several compiled functions used, and its own
-    host reads (default: `fn.last_entry`, none)."""
+    `kernels` among them and no rank map built, each entry on one card one
+    graph.  Then eager and compiled host ms, busy ms and idle share, the
+    graphs and host reads of a call (counted while it runs: none but the
+    dispatch's own), the loop bodies' runs at each call (read from their
+    counters), and the peak memory with the graphs alive.  `chain` gives
+    the entries a call of a dispatch over several compiled functions used,
+    and the dispatch's own host reads (default: `fn.last_entry`, none)."""
     from gme_tpu_torch.utils import compiled as CP
 
+    def entries_now():
+        return chain() if chain else ([fn.last_entry], 0)
+
     kept = []
+    body_runs = []
     with counting_rank_maps() as builds:
         for args in calls:
             reset_counts(K)
@@ -1316,6 +1356,7 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
             check(replayed == eager_launches and not any(K.LAUNCHES.values()),
                   f"[compiled] {name}: a call launched {replayed} (eager launches "
                   f"{dict(K.LAUNCHES)}), the eager body {eager_launches}")
+            body_runs.append([int(loop.runs[0]) for e in entries_now()[0] for loop in e.loops])
             flat_w, _ = CP._flatten(want)
             flat_g, _ = CP._flatten(got)
             check(len(flat_w) == len(flat_g) and all(
@@ -1328,8 +1369,14 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
           f"[compiled] {name}: a later call changed an earlier call's outputs")
     missing = [k for k in kernels if eager_launches[k] == 0]
     check(not missing, f"[compiled] {name}: kernels of the path did not launch: {missing}")
-    entries, own_reads = chain() if chain else ([fn.last_entry], 0)
+    entries, own_reads = entries_now()
     args = calls[-1]
+    reads = host_reads(torch, lambda: fn(*args))
+    torch.cuda.synchronize()
+    check(reads == own_reads, f"[compiled] {name}: a call read {reads} tensors on the host, "
+          f"the dispatch's own {own_reads}")
+    whole = [len(e.graphs) for e in entries if not e.steps]
+    check(all(n == 1 for n in whole), f"[compiled] {name}: graphs of the entries {whole}, not 1")
     eager_ms, eager_busy, eager_items = host_and_busy(torch, lambda: eager(*args))
     torch.cuda.reset_peak_memory_stats()
     comp_ms, comp_busy, comp_items = host_and_busy(torch, lambda: fn(*args))
@@ -1345,7 +1392,7 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
            "eager_device_items": eager_items, "compiled_device_items": comp_items,
            "graphs": sum(len(e.graphs) for e in entries),
            "steps": sum(len(e.steps) for e in entries),
-           "host_reads": own_reads + sum(e.host_reads for e in entries),
+           "host_reads": reads, "body_runs": body_runs,
            "launches": {k: v for k, v in replayed.items() if v},
            "peak_gib": peak / 2**30, "reserved_gib": reserved / 2**30}
     rows[name] = row
@@ -1356,7 +1403,7 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
     phase("compiled", f"{name}: {len(calls)} calls == the eager body bit for bit, the first "
           f"unchanged by the second; launches a replay {row['launches']} == eager; no rank map; "
           f"{row['graphs']} graph(s), {row['steps']} collective step(s), {row['host_reads']} host "
-          f"read(s) a call; host ms eager "
+          f"read(s) a call; loop body runs at each call {body_runs}; host ms eager "
           f"{eager_ms:.3f} compiled {comp_ms:.3f}; busy ms eager {ms(eager_busy)} compiled "
           f"{ms(comp_busy)}; idle eager {ms(row['eager_idle'])} compiled "
           f"{ms(row['compiled_idle'])}; peak {row['peak_gib']:.2f} GiB allocated, "
@@ -1391,15 +1438,26 @@ def compiled_phase(torch, K, card, dev):
                   [(p, c, cfg) for p, c in pairs], DEFAULT_KERNELS, rows)
     small = [(p[:BATCH_SEARCH], c[:BATCH_SEARCH]) for p, c in pairs]
     del pairs
+    # The 2D-log loops (WHILE nodes) at other iteration counts: a still pair
+    # (0 body runs after the unrolled steps) replays the pans' entry;
+    # max_iters, static as in JAX, makes an entry of its own.
+    still = (small[0][0], small[0][0])
     for opt, (kw, kernels) in GME_OPTIONS.items():
-        compiled_case(torch, K, card, f"gme {opt} B={BATCH_SEARCH}", step, eager,
-                      [(p, c, cfg.replace(**kw)) for p, c in small], kernels, rows)
+        calls = [(p, c, cfg.replace(**kw)) for p, c in small]
+        if opt == "sp2":
+            calls[1:1] = [(*still, cfg.replace(**kw)),
+                          (*small[0], cfg.replace(max_search_iters=LOOP_CAP, **kw))]
+        compiled_case(torch, K, card, f"gme {opt} B={BATCH_SEARCH}", step, eager, calls,
+                      kernels, rows)
         torch.cuda.empty_cache()
     for sp in range(4):
         kernels = ("cost_volume_rowoffset",) + (("chase_volume",) if sp == 3 else ())
+        calls = [(p, c, CLI_BS, CLI_SW, sp, MAE) for p, c in small]
+        if sp == 2:
+            calls[1:1] = [(*still, CLI_BS, CLI_SW, sp, MAE),
+                          (*small[0], CLI_BS, CLI_SW, sp, MAE, LOOP_CAP)]
         compiled_case(torch, K, card, f"search {SEARCH_NAMES[sp]} B={BATCH_SEARCH}",
-                      bbme.get_motion_field_jit, bbme.get_motion_field,
-                      [(p, c, CLI_BS, CLI_SW, sp, MAE) for p, c in small], kernels, rows)
+                      bbme.get_motion_field_jit, bbme.get_motion_field, calls, kernels, rows)
     del small
     torch.cuda.empty_cache()
 

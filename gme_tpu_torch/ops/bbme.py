@@ -57,9 +57,10 @@ _INF = float("inf")
 SDSP = ((0, 0), (0, 1), (1, 0), (0, -1), (-1, 0))
 # Padding candidates of the 2D-log cross pattern: far out of every frame.
 _FAR = -(2**31) // 4
-# Steps of the 2D-log and gather-diamond loops between two reads of their
-# condition on the host (`utils.compiled.while_loop`), after the steps every
-# walk takes: a read costs far less than a masked step of 720p blocks.
+# Steps of the 2D-log and gather-diamond loops between two tests of their
+# condition (`utils.compiled.while_loop`: eagerly a read by the host, in a
+# CUDA graph a WHILE node's run of its body), after the steps every walk
+# takes.
 LOOP_CHUNK = 4
 
 # An evaluator maps candidate positions (B, nbh, nbw, K, 2) and a validity
@@ -445,9 +446,9 @@ def twodlog_search(
     means the field equals the unbounded gather engine's.
 
     The loop runs floor(log2(sw)) steps, then chunks of LOOP_CHUNK steps
-    with one host read of its condition before each chunk
-    (`utils.compiled.while_loop`, JAX's `lax.while_loop`); an iteration
-    count on the device keeps `max_iters` exact."""
+    while its condition holds (`utils.compiled.while_loop`, JAX's
+    `lax.while_loop`: a WHILE node in a CUDA graph); an iteration count on
+    the device keeps `max_iters` exact."""
     B, H, W = previous.shape
     bs, sw = block_size, search_window
     radius = max(volume_radius, 2 * sw)
@@ -524,8 +525,7 @@ def diamond_walk(
     """The gather-engine diamond walk: LDSP steps in lockstep until every
     block's centre wins, then one SDSP pass (JAX bbme.py:672-715).  Returns
     the best absolute positions, shaped like `origins`.  The loop runs one
-    step, then chunks of LOOP_CHUNK steps, one host read a chunk, as
-    `twodlog_search`'s."""
+    step, then chunks of LOOP_CHUNK steps, as `twodlog_search`'s."""
     dev = origins.device
     ldsp = _offset_table(LDSP, dev)
     sdsp = _offset_table(SDSP, dev)
@@ -838,8 +838,8 @@ def get_motion_field_cfg(previous: torch.Tensor, current: torch.Tensor, cfg: BBM
 
 
 # The JAX package's compiled dispatch (JAX bbme.py:1229-1262): one captured
-# CUDA graph per (static arguments, shapes, device) on the card; 2D-log and
-# the gather diamond as a chain of graphs around their chunked loops.
+# CUDA graph per (static arguments, shapes, device) on the card; the loops
+# of 2D-log and the gather diamond are WHILE nodes inside it.
 get_motion_field_jit = compiled(get_motion_field, static_argnames=(
     "block_size", "search_window", "searching_procedure", "pnorm_distance", "max_iters",
     "search_impl", "volume_radius", "return_diagnostics"))

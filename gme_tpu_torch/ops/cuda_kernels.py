@@ -30,7 +30,9 @@ can show that it went through the kernels.
 The sources build at first use with nvcc, one compiler process per source,
 all started together, linked into one shared library with a plain C
 interface (`gme_tpu_torch/_build/`, keyed by a hash of the sources and
-flags) and loaded with ctypes.
+flags) and loaded with ctypes.  The library also holds the graph control
+of `utils.compiled.while_loop` (`graph_conditional.cu`: a WHILE node and
+the one-thread kernel that sets its condition), which ports no kernel.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ _SOURCES = (
     "chase_fixpoint.cu",
     "chase_volume.cu",
     "warp_block_field.cu",
+    "graph_conditional.cu",
     "errors.cu",
 )
 _HEADERS = ("gme_kernels.cuh", "cost_volume_small_block.cuh", "cost_volume_tiles.cuh",
@@ -176,6 +179,15 @@ def load_library() -> ctypes.CDLL:
         for fn in (lib.gme_cost_volume_small_block, lib.gme_cost_volume_mse_block,
                    lib.gme_cost_volume_rowoffset, lib.gme_cost_volume_cross,
                    lib.gme_chase_fixpoint, lib.gme_chase_volume, lib.gme_warp_block_field):
+            fn.restype = ctypes.c_int
+        # Graph control for `utils.compiled.while_loop` (no TPU kernel).
+        u64 = ctypes.c_ulonglong
+        lib.gme_while_handle.argtypes = [p, ctypes.POINTER(u64)]
+        lib.gme_while_set.argtypes = [u64, p, p]
+        lib.gme_while_begin.argtypes = [p, p, u64]
+        lib.gme_while_end.argtypes = [p]
+        for fn in (lib.gme_while_handle, lib.gme_while_set, lib.gme_while_begin,
+                   lib.gme_while_end):
             fn.restype = ctypes.c_int
         lib.gme_error_string.argtypes = [ctypes.c_int]
         lib.gme_error_string.restype = ctypes.c_char_p

@@ -2,8 +2,8 @@
 
 The JAX package compiles its entry points with `jax.jit`: one XLA program
 per set of shapes and static arguments, dispatched once, reading nothing
-back to the host.  Here a compiled function is one captured CUDA graph (or
-a short chain of them, see `while_loop`) per key:
+back to the host.  Here a compiled function is one captured CUDA graph per
+key:
 
     key = (static arguments, each tensor argument's shape, dtype, device,
            every other non-tensor argument)
@@ -53,18 +53,27 @@ graphs.
 
 `while_loop(cond, body, state, chunk)` is the counterpart of
 `lax.while_loop` for loops whose body is masked (a finished element does
-not change): while one read of `cond` on the host is true, `chunk` steps.
-Eagerly that is the loop itself; inside a capture it splits the graph
-there, so the entry becomes a graph up to the loop (which computes the
-first condition), a graph of `chunk` steps and the next condition,
-replayed once per true read, and a graph after it.
+not change): while `cond(state)` is true, `chunk` steps.  Eagerly the host
+reads the condition before each chunk.  Inside a capture the loop is a
+conditional WHILE node of the graph (CUDA 12.4 and later;
+`csrc/graph_conditional.cu`), and the card decides: a one-thread kernel
+sets the node's condition from the first `cond(state)` before the node, and
+the node's body, captured on a second side stream into a memory pool of the
+entry's own, is `_loop_chunk` (the `chunk` steps written back into the
+state's buffers, a count of body runs, the next condition) and the kernel
+again.  A replay reads nothing back, however many times the body runs.  A
+split capture runs the loop eagerly, so its read of the condition fails
+the capture.
 
 Launches.  The kernel wrappers count their launches (`cuda_kernels.LAUNCHES`)
-where they launch, which a replay does not do.  A capture records each
-graph's launches and leaves `LAUNCHES` as it found it; each replay adds its
-graphs' launches to `REPLAY_LAUNCHES`.  So `LAUNCHES` counts the eager
-launches, `REPLAY_LAUNCHES` the launches the replays made, and
-`Entry.launches` holds one call's (the last call's, for a loop).
+where they launch, which a replay does not do.  A capture records the
+graph's launches, and each loop body's apart, and leaves `LAUNCHES` as it
+found it.  A replay adds its graph's own launches to the replay counts; a
+loop body's launches times its runs are added when the counts are read
+(`replay_launches()`, which reads each body's counter on the device: call
+it after a synchronise, never on a call's path).  So `LAUNCHES` counts the
+eager launches, `replay_launches()` the launches the replays made, and
+`Entry.launches` one call's (the last call's).
 """
 
 from __future__ import annotations
@@ -72,11 +81,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import ctypes
 import inspect
 import os
 import threading
 import traceback
 import warnings
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -87,19 +98,41 @@ from torch.utils._pytree import tree_leaves
 from gme_tpu_torch.ops import cuda_kernels
 from gme_tpu_torch.utils import guards
 
-REPLAY_LAUNCHES: Dict[str, int] = {name: 0 for name in cuda_kernels.LAUNCHES}
 # Keys a compiled function keeps, the least recently used freed first.
 MAX_ENTRIES = 8
 
 # Set while a compiled function's body runs for its warm-up or capture: a
-# compiled function called then runs inline, `while_loop` splits the
-# capture, and `transfer` splits a split capture.
+# compiled function called then runs inline, `while_loop` makes a WHILE
+# node, and `transfer` splits a split capture.
 _TRACING: contextvars.ContextVar = contextvars.ContextVar("gme_tpu_torch_compiled", default=None)
+
+# Launches of the replays since `reset_replay_counts`, the loop bodies' as
+# far as they were folded in; the loop bodies of the live entries.
+_REPLAY_LAUNCHES: Dict[str, int] = {name: 0 for name in cuda_kernels.LAUNCHES}
+_LOOPS: "weakref.WeakSet[_Loop]" = weakref.WeakSet()
+
+
+def _fold(loops) -> None:
+    """Add each loop body's launches times its runs since the last fold."""
+    for loop in loops:
+        total = int(loop.runs[1])
+        for name, n in loop.launches.items():
+            _REPLAY_LAUNCHES[name] += (total - loop.folded) * n
+        loop.folded = total
+
+
+def replay_launches() -> Dict[str, int]:
+    """Launches of each kernel made by replays since the counts were last
+    set to 0: the graphs' own and the loop bodies', whose runs it reads
+    from their counters on the device (module docstring)."""
+    _fold(list(_LOOPS))
+    return dict(_REPLAY_LAUNCHES)
 
 
 def reset_replay_counts() -> None:
-    for name in REPLAY_LAUNCHES:
-        REPLAY_LAUNCHES[name] = 0
+    _fold(list(_LOOPS))
+    for name in _REPLAY_LAUNCHES:
+        _REPLAY_LAUNCHES[name] = 0
 
 
 class CaptureError(RuntimeError):
@@ -165,11 +198,34 @@ def _failing_line(tb) -> str:
 # Capture sessions and entries
 # ---------------------------------------------------------------------------
 
+@dataclass(eq=False)
+class _Loop:
+    """A WHILE node of a graph: one run of its body launches `launches`;
+    `runs` (int64, on the device) counts its body's runs, [0] in the last
+    replay and [1] since the capture, of which `folded` are counted in
+    `_REPLAY_LAUNCHES`."""
+    runs: torch.Tensor
+    launches: Dict[str, int]
+    folded: int = 0
+
+
 @dataclass
 class _Graph:
     graph: Any  # torch.cuda.CUDAGraph; None in a plan counted on the CPU
-    launches: Dict[str, int]
-    flag: Optional[torch.Tensor] = None  # a loop graph's condition, read before each replay
+    launches: Dict[str, int]  # a replay's, outside the loop bodies
+    loops: List[_Loop] = field(default_factory=list)
+    # The (device, pool) of the loop bodies and the captures that hold it:
+    # the bodies' temporaries stay in it until the graph is released.
+    body_pool: Any = None
+    body_pool_uses: int = 0
+
+    def reset(self) -> None:
+        _fold(self.loops)
+        for loop in self.loops:
+            _LOOPS.discard(loop)
+        self.graph.reset()
+        _release_pool(self.body_pool, self.body_pool_uses)
+        self.body_pool_uses = 0
 
 
 @dataclass
@@ -186,10 +242,9 @@ class _Step:
 
 @dataclass
 class Entry:
-    """One key's captured plan: graphs in order (a loop graph, one with a
-    `flag`, replays while its flag, read before each replay, is true) and,
-    in a split entry, collective steps between them.  `devices` are the
-    devices a split entry's segments run on, the caller's first."""
+    """One key's captured plan: its graph or, in a split entry, graphs and
+    collective steps in order.  `devices` are the devices a split entry's
+    segments run on, the caller's first."""
     inputs: List[torch.Tensor]
     outputs: List[torch.Tensor]
     out_struct: Any
@@ -199,8 +254,6 @@ class Entry:
     # until release, since resetting a graph gives up its hold on the pool
     # that the next capture on that device shares.
     empty: List[Any] = field(default_factory=list)
-    host_reads: int = 0  # of the last call
-    launches: Dict[str, int] = field(default_factory=dict)  # of the last call
 
     @property
     def graphs(self) -> List[_Graph]:
@@ -210,6 +263,22 @@ class Entry:
     def steps(self) -> List[_Step]:
         return [s for s in self.plan if isinstance(s, _Step)]
 
+    @property
+    def loops(self) -> List[_Loop]:
+        return [loop for g in self.graphs for loop in g.loops]
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        """The last call's launches of each kernel: read from the loop
+        bodies' counters on the device."""
+        out = collections.Counter()
+        for g in self.graphs:
+            out.update(g.launches)
+            for loop in g.loops:
+                runs = int(loop.runs[0])
+                out.update({k: runs * n for k, n in loop.launches.items()})
+        return {k: out.get(k, 0) for k in _REPLAY_LAUNCHES}
+
     def replay(self) -> None:
         """Replay on the caller's current streams; the caller's device is
         the current device."""
@@ -217,33 +286,22 @@ class Entry:
         others = [torch.cuda.current_stream(d) for d in self.devices[1:]]
         for s in others:
             s.wait_stream(caller)
-        reads = 0
-        launched = collections.Counter()
         for g in self.plan:
             if isinstance(g, _Step):
                 g.run()
                 continue
-            while g.flag is None or bool(g.flag):
-                g.graph.replay()
-                launched.update(g.launches)
-                if g.flag is None:
-                    break
-                reads += 1
-            if g.flag is not None:
-                reads += 1  # the read that ended the loop
+            g.graph.replay()
+            for name, n in g.launches.items():
+                _REPLAY_LAUNCHES[name] += n
         for s in others:
             caller.wait_stream(s)
-        for name, n in launched.items():
-            REPLAY_LAUNCHES[name] += n
-        self.host_reads = reads
-        self.launches = {k: launched.get(k, 0) for k in REPLAY_LAUNCHES}
 
     def release(self) -> None:
         if self.steps:  # the steps' buffers may still be in use on any device
             for d in self.devices:
                 torch.cuda.synchronize(d)
         for g in self.graphs:
-            g.graph.reset()
+            g.reset()
         for g in self.empty:
             g.reset()
         self.empty.clear()
@@ -253,45 +311,105 @@ class Entry:
 
 
 class _Session:
-    """One capture: a chain of graphs in one pool on one stream."""
+    """One capture: one graph in one pool on one stream, with a WHILE node
+    for each `while_loop` (module docstring)."""
 
     def __init__(self, pool):
         self.pool = pool
-        self.graphs: List[_Graph] = []
-        self._open = None  # (graph, launches before)
+        self.graph: Optional[_Graph] = None
+        self._before = None  # the launch counts when the open capture began
 
     def begin(self) -> None:
         g = torch.cuda.CUDAGraph()
         before = dict(cuda_kernels.LAUNCHES)
         g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-        self._open = (g, before)
+        self.graph = _Graph(g, {})
+        self._before = before
 
-    def end(self, flag: Optional[torch.Tensor] = None) -> None:
-        g, before = self._open
-        self._open = None
-        g.capture_end()
-        launches = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
+    def end(self) -> None:
+        before, self._before = self._before, None
+        self.graph.graph.capture_end()
+        self.graph.launches = _launched_since(before)
         # The capture recorded these launches without running them.
         cuda_kernels.LAUNCHES.update(before)
-        self.graphs.append(_Graph(g, launches, flag))
 
     def abort(self) -> None:
-        if self._open is None:
+        if self.graph is None:
             return
-        g, before = self._open
-        self._open = None
+        if self._before is not None:
+            cuda_kernels.LAUNCHES.update(self._before)
+            self._before = None
+            with contextlib.suppress(RuntimeError):
+                self.graph.graph.capture_end()
+        self.graph.loops.clear()  # never replayed: nothing to count
+        self.graph.reset()
+        self.graph = None
+
+    def loop(self, cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...],
+             chunk: int) -> None:
+        """`while_loop` as a WHILE node of the open graph, on the buffers
+        of `state` (module docstring)."""
+        lib = cuda_kernels.load_library()
+        device = state[0].device
+        outer = torch.cuda.current_stream(device)
+        inner = _side_stream(device, body=True)
+        g = self.graph
+        if g.body_pool is None:
+            g.body_pool = (device.index, torch.cuda.graph_pool_handle())
+        runs = torch.empty(2, dtype=torch.int64, device=device)  # set to 0 after the capture
+        runs[0].zero_()
+        handle = ctypes.c_ulonglong()
+        _graph_call("make the condition handle",
+                    lib.gme_while_handle(ctypes.c_void_p(outer.cuda_stream), ctypes.byref(handle)))
+        _graph_call("set the first condition", lib.gme_while_set(
+            handle, ctypes.c_void_p(cond(state).data_ptr()), ctypes.c_void_p(outer.cuda_stream)))
+        before = dict(cuda_kernels.LAUNCHES)
+        _graph_call("add the WHILE node", lib.gme_while_begin(
+            ctypes.c_void_p(outer.cuda_stream), ctypes.c_void_p(inner.cuda_stream), handle))
+        try:
+            with torch.cuda.stream(inner):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(*g.body_pool)
+                g.body_pool_uses += 1
+                try:
+                    flag = _loop_chunk(cond, body, state, chunk, runs)
+                    _graph_call("set the next condition", lib.gme_while_set(
+                        handle, ctypes.c_void_p(flag.data_ptr()),
+                        ctypes.c_void_p(inner.cuda_stream)))
+                finally:
+                    torch._C._cuda_endAllocateToPool(*g.body_pool)
+        except BaseException:
+            lib.gme_while_end(ctypes.c_void_p(inner.cuda_stream))  # the caller aborts
+            raise
+        _graph_call("end the body's capture",
+                    lib.gme_while_end(ctypes.c_void_p(inner.cuda_stream)))
+        g.loops.append(_Loop(runs, _launched_since(before)))
+        # The capture recorded the body's launches without running them.
         cuda_kernels.LAUNCHES.update(before)
-        with contextlib.suppress(RuntimeError):
-            g.capture_end()
 
 
-_STREAMS: Dict[torch.device, Any] = {}
+def _launched_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
 
 
-def _side_stream(device: torch.device):
-    if device not in _STREAMS:
-        _STREAMS[device] = torch.cuda.Stream(device)
-    return _STREAMS[device]
+def _graph_call(step: str, err: int) -> None:
+    if err != 0:
+        msg = cuda_kernels.load_library().gme_error_string(err).decode()
+        raise RuntimeError(f"while_loop: could not {step}: {msg} ({err})")
+
+
+def _release_pool(pool, uses: int) -> None:
+    for _ in range(uses):
+        torch._C._cuda_releasePool(*pool)
+
+
+_STREAMS: Dict[Tuple[torch.device, bool], Any] = {}
+
+
+def _side_stream(device: torch.device, body: bool = False):
+    """The device's stream for captures, or for loop bodies."""
+    if (device, body) not in _STREAMS:
+        _STREAMS[device, body] = torch.cuda.Stream(device)
+    return _STREAMS[device, body]
 
 
 def _is_view(func) -> bool:
@@ -416,31 +534,38 @@ def transfer(moves: Sequence[Tuple[torch.Tensor, torch.device]]) -> List[torch.T
     return [t.to(d) for t, d in moves]
 
 
-def while_loop(cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...], chunk: int):
-    """Run `body` on the tuple of tensors `state` in chunks of `chunk`
-    steps while `cond(state)`, a 0-dim bool tensor, is true before a chunk;
-    returns the final state.  `body` must leave a finished state as it is
-    (masked steps), so steps past the end change nothing.  One host read of
-    `cond` per chunk and one that ends the loop; inside a capture the loop
-    becomes its own graph (module docstring)."""
-    state = tuple(t.clone() for t in state)
-    sess = _TRACING.get()
-    if not isinstance(sess, _Session):
-        while bool(cond(state)):
-            for _ in range(chunk):
-                state = tuple(body(state))
-        return state
-    flag = cond(state)
-    sess.end()
-    sess.begin()
+def _loop_chunk(cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...], chunk: int,
+                runs: torch.Tensor) -> torch.Tensor:
+    """One run of `while_loop`'s body: `chunk` steps written back into the
+    buffers of `state` (a WHILE node's body replays on fixed addresses), 1
+    added to each count of `runs`; returns the next condition.  The eager
+    loop runs it while the host reads the condition true; a capture makes
+    it a WHILE node's body, which the card runs while it is true."""
     new = state
     for _ in range(chunk):
         new = tuple(body(new))
     for dst, src in zip(state, new):
         dst.copy_(src)
-    flag.copy_(cond(state))
-    sess.end(flag=flag)
-    sess.begin()
+    runs.add_(1)
+    return cond(state)
+
+
+def while_loop(cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...], chunk: int):
+    """Run `body` on the tuple of tensors `state` in chunks of `chunk`
+    steps while `cond(state)`, a 0-dim bool tensor, is true before a chunk;
+    returns the final state.  `body` must leave a finished state as it is
+    (masked steps), so steps past the end change nothing.  Eagerly one host
+    read of `cond` per chunk and one that ends the loop; inside a capture a
+    WHILE node, which the host never reads (module docstring)."""
+    state = tuple(t.clone() for t in state)
+    sess = _TRACING.get()
+    if isinstance(sess, _Session):
+        sess.loop(cond, body, state, chunk)
+        return state
+    runs = torch.zeros(2, dtype=torch.int64, device=state[0].device)
+    flag = cond(state)
+    while bool(flag):
+        flag = _loop_chunk(cond, body, state, chunk, runs)
     return state
 
 
@@ -551,11 +676,12 @@ class Compiled:
                     sess.begin()
                     out = self._call_body(static, struct, inputs)
                     sess.end()
+                    for loop in sess.graph.loops:
+                        loop.runs.zero_()
+                        _LOOPS.add(loop)
             except Exception as e:
                 with torch.cuda.stream(stream):
                     sess.abort()
-                for g in sess.graphs:
-                    g.graph.reset()
                 raise CaptureError(
                     f"compiled {self.name}: the CUDA graph capture failed at "
                     f"{_failing_line(e.__traceback__)}: {type(e).__name__}: {e}") from e
@@ -563,7 +689,7 @@ class Compiled:
                 _TRACING.reset(token)
             torch.cuda.current_stream(device).wait_stream(stream)
         outputs, out_struct = _flatten(out)
-        return Entry(inputs, outputs, out_struct, sess.graphs, (device,))
+        return Entry(inputs, outputs, out_struct, [sess.graph], (device,))
 
     def _count_split(self, args, kwargs):
         """The body on the CPU under a split session that captures nothing:

@@ -157,6 +157,80 @@ def test_gather_diamond_chunked_loop_matches_jax(max_iters):
     np.testing.assert_array_equal(got[0].numpy(), want)
 
 
+def _loop_inputs(search, moved):
+    """A pair and the search arguments of the 2D-log test above
+    (`test_get_motion_field_jit_matches_jitted_jax`) or of the gather
+    diamond's; a still pair when not `moved`."""
+    if search == "2D-log":
+        rng = np.random.RandomState(7)
+        prev = _smooth_frame(rng, 96, 120)
+        shift = (5, -7)
+        kw = dict(block_size=12, search_window=8, searching_procedure=TWODLOG,
+                  pnorm_distance=MAE, search_impl="volume")
+    else:
+        rng = np.random.RandomState(8)
+        prev = _smooth_frame(rng, 64, 80)
+        shift = (9, 11)
+        kw = dict(block_size=8, searching_procedure=DIAMOND, pnorm_distance=MSE,
+                  search_impl="gather")
+    return prev, np.roll(prev, shift, (0, 1)) if moved else prev.copy(), kw
+
+
+@pytest.mark.parametrize("search,moved,max_iters", [
+    ("2D-log", True, 1), ("2D-log", True, tbbme.LOOP_CHUNK), ("2D-log", True, 4096),
+    ("2D-log", False, 4096), ("gather diamond", True, 1),
+    ("gather diamond", True, tbbme.LOOP_CHUNK), ("gather diamond", True, 4096),
+    ("gather diamond", False, 4096),
+])
+def test_while_node_body_looped_on_the_host(monkeypatch, search, moved, max_iters):
+    """The function a WHILE node captures (`_loop_chunk`: the chunk in
+    place, the counter, the next flag), looped on the host as the node
+    loops it (the first flag set before the node, then the body while its
+    flag is true), gives eager `while_loop`'s field and jitted JAX's
+    `lax.while_loop`'s, and its counter the eager loop's chunks; at
+    max_iters 1, and on a still 2D-log pair, the first flag is false."""
+    prev, curr, kw = _loop_inputs(search, moved)
+    kw["max_iters"] = max_iters
+    want = np.asarray(jbbme.get_motion_field_jit(jnp.asarray(prev), jnp.asarray(curr), **kw))
+    chunks = []
+    loop_chunk = C._loop_chunk
+
+    def counted_chunk(*args):
+        chunks[-1] += 1
+        return loop_chunk(*args)
+
+    def eager_loop(cond, body, state, chunk):
+        chunks.append(0)
+        return C.while_loop(cond, body, state, chunk)
+
+    monkeypatch.setattr(C, "_loop_chunk", counted_chunk)
+    monkeypatch.setattr(tbbme, "while_loop", eager_loop)
+    eager = tbbme.get_motion_field(_t(prev)[None], _t(curr)[None], **kw)
+    monkeypatch.undo()
+    firsts, runs = [], []
+
+    def while_node(cond, body, state, chunk):
+        state = tuple(t.clone() for t in state)
+        counter = torch.zeros(2, dtype=torch.int64)
+        flag = cond(state)  # set before the node
+        firsts.append(bool(flag))
+        while bool(flag):  # the node's test of its condition
+            flag = C._loop_chunk(cond, body, state, chunk, counter)
+        runs.append(counter.tolist())
+        return state
+
+    monkeypatch.setattr(tbbme, "while_loop", while_node)
+    got = tbbme.get_motion_field(_t(prev)[None], _t(curr)[None], **kw)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    assert torch.equal(got, eager)
+    assert runs == [[n, n] for n in chunks] and len(runs) == 1, (runs, chunks)
+    assert firsts == [runs[0][0] > 0]
+    if max_iters == 1 or (search == "2D-log" and not moved):
+        assert runs == [[0, 0]]
+    if max_iters == 4096 and moved:
+        assert runs[0][0] > 1  # the pan needs more than one chunk
+
+
 # ---------------------------------------------------------------------------
 # The small compiled ops and direct GME
 # ---------------------------------------------------------------------------
@@ -289,6 +363,32 @@ def test_while_loop_is_the_masked_loop():
                                           torch.zeros((), dtype=torch.int64)), chunk=4)
         assert torch.equal(x, limit.clamp(max=max_iters)), max_iters
         assert int(it) % 4 == 0
+
+
+def test_while_loop_in_a_split_capture_runs_eagerly():
+    """A split session (the band program's) makes no WHILE node: its
+    `while_loop` runs eagerly, reading the condition on the host once per
+    chunk and once at the end, which a capture on the card refuses; on the
+    CPU the plan is one segment with no loop."""
+    limit = torch.tensor([0, 1, 5, 13, 30])
+
+    def body(s):
+        x, it = s
+        return torch.where(x < limit, x + 1, x), it + 1
+
+    def fn(x):
+        return C.while_loop(lambda s: (s[0] < limit).any(), body,
+                            (x, torch.zeros((), dtype=torch.int64)), 4)
+
+    x = torch.zeros(5, dtype=torch.int64)
+    split = C.compiled(fn, split=True)
+    mode = _HostTraffic()
+    with mode:
+        got = split(x)
+    assert torch.equal(got[0], limit) and int(got[1]) == 32
+    assert mode.reads == 32 // 4 + 1
+    assert len(split.last_entry.graphs) == 1 and not split.last_entry.steps
+    assert split.last_entry.loops == []
 
 
 def test_compiled_key_and_cpu_calls():

@@ -403,7 +403,7 @@ def test_launch_counts_and_pipeline_equal_cpu(cuda):
     compiled.reset_replay_counts()
     got = gme_pipeline_batch(torch.from_numpy(prev).to(cuda), torch.from_numpy(curr).to(cuda), cfg)
     # The compiled step's first call launches eagerly, later ones by replays.
-    launches = {n: K.LAUNCHES[n] + compiled.REPLAY_LAUNCHES[n] for n in K.LAUNCHES}
+    launches = _launched()
     assert all(launches[n] > 0 for n in DEFAULT_PATH_KERNELS), launches
     for k in want:
         if k == "psnr":  # a float32 mean over > 2**24: reduction order moves the last bits
@@ -674,7 +674,31 @@ def test_mesh_across_cards_equals_one_card(cuda, tmp_path):
 # ---------------------------------------------------------------------------
 
 def _launched():
-    return {n: K.LAUNCHES[n] + compiled.REPLAY_LAUNCHES[n] for n in K.LAUNCHES}
+    replayed = compiled.replay_launches()
+    return {n: K.LAUNCHES[n] + replayed[n] for n in K.LAUNCHES}
+
+
+def _host_reads(fn, *args, **kwargs):
+    """Reads of a tensor's value by the host (`item`, `bool`, a copy to the
+    CPU) in one call of `fn`."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Reads(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            to_host = (isinstance(out, torch.Tensor) and out.device.type == "cpu"
+                       and any(isinstance(t, torch.Tensor) and t.is_cuda
+                               for t in tree_leaves((args, kwargs))))
+            if func is torch.ops.aten._local_scalar_dense.default or to_host:
+                self.n += 1
+            return out
+
+    with Reads() as mode:
+        fn(*args, **kwargs)
+    return mode.n
 
 
 def _compiled_equals_eager(fn, eager, calls, keep=None):
@@ -716,8 +740,10 @@ def test_compiled_step_equals_eager(cuda, cfg):
         calls.append((prev.to(cuda), curr.to(cuda), cfg))
     _compiled_equals_eager(gme_pipeline_batch, gme_pipeline_batch_eager, calls)
     entry = next(e for k, e in gme_pipeline_batch.entries.items() if k[0] == (("cfg", cfg),))
-    assert len(entry.graphs) == (7 if cfg.searching_procedure == 2 else 1)
-    assert (entry.host_reads > 0) == (cfg.searching_procedure == 2)
+    # One graph whatever the search: 2D-log's three loops are WHILE nodes.
+    assert len(entry.graphs) == 1
+    assert len(entry.loops) == (3 if cfg.searching_procedure == 2 else 0)
+    assert _host_reads(gme_pipeline_batch, *calls[0]) == 0
 
 
 @pytest.mark.parametrize("sp,impl,max_iters", [
@@ -733,6 +759,47 @@ def test_compiled_motion_field_equals_eager(cuda, sp, impl, max_iters):
         calls.append((prev.to(cuda), curr.to(cuda)))
     _compiled_equals_eager(lambda p, c: bbme.get_motion_field_jit(p, c, **kw),
                            lambda p, c: bbme.get_motion_field(p, c, **kw), calls)
+    entry = bbme.get_motion_field_jit.last_entry
+    assert len(entry.graphs) == 1
+    assert len(entry.loops) == (1 if sp == 2 or (sp == 3 and impl == "gather") else 0)
+    assert _host_reads(bbme.get_motion_field_jit, *calls[0], **kw) == 0
+
+
+@pytest.mark.parametrize("sp,impl", [(2, "volume"), (3, "gather")])
+def test_compiled_loop_replays_any_iteration_count(cuda, sp, impl):
+    """One captured entry replayed on a panned pair, a still pair (2D-log:
+    no body run after its unrolled steps) and a larger pan, at more than
+    one count of body runs, then a max_iters=3 call (static, so an entry of
+    its own): each bit-equal to the eager body, with its launches once the
+    body's counter is read, and the counter's runs those of the eager
+    loop's chunks (its host reads but the last)."""
+    kw = dict(block_size=12, search_window=8, searching_procedure=sp, pnorm_distance=MAE,
+              search_impl=impl, return_diagnostics=True)
+    prev, curr = _pan_pair(9, 72, 120, (3, -5))
+    big = _pan_pair(10, 72, 120, (9, 11))
+    cases = [((prev, curr), 4096), ((prev, prev), 4096), (big, 4096), ((prev, curr), 3)]
+    runs = []
+    for (p, c), max_iters in cases:
+        p, c = p.to(cuda), c.to(cuda)
+
+        def fn(p, c, _m=max_iters):
+            return bbme.get_motion_field_jit(p, c, max_iters=_m, **kw)
+
+        def eager(p, c, _m=max_iters):
+            return bbme.get_motion_field(p, c, max_iters=_m, **kw)
+
+        _compiled_equals_eager(fn, eager, [(p, c)])
+        entry = bbme.get_motion_field_jit.last_entry
+        assert len(entry.graphs) == 1 and len(entry.loops) == 1
+        runs.append(int(entry.loops[0].runs[0]))
+        assert entry.launches == _launched()
+        assert runs[-1] == _host_reads(eager, p, c) - 1
+    keys = {bbme.get_motion_field_jit.key(p.to(cuda), c.to(cuda), max_iters=m, **kw)
+            for (p, c), m in cases}
+    assert len(keys) == 2  # the three 4096-step calls replay one entry
+    assert runs[0] > 0 and len(set(runs[:3])) > 1 and runs[3] <= 1, runs
+    if sp == 2:  # a still 2D-log pair ends in its unrolled steps
+        assert runs[1] == 0, runs
 
 
 def test_compiled_small_ops_and_adaptive_equal_eager(cuda):
