@@ -30,8 +30,17 @@ the device's own duration from torch.profiler, and the wrapper's host time
 a call.  Where more than one card is visible, `[cards]`: the spatial band
 program over min(4, cards) distinct cards for one 720p pair under
 diamond, three-step and exhaustive, eager and compiled (per-card graphs
-split at the collectives) in turns, with the host time and each card's
-busy time, idle share and peak memory.  Then `[stages]`: the default 720p step at batch 24 stage by stage
+split at the collectives), each held to the 1x1 step bit for bit, then in
+turns, with the host time, the back-to-back time, the host's own time by
+name (operators and CUDA runtime calls) in the profiled call, each card's
+busy time, idle share, peak memory and device activities, and the
+compiled program's graphs, collective steps, copies and event pairs a
+call.  With `--parent DIR` (a checkout of
+the parent commit inside the repository, e.g. unpacked with `git archive`
+into a gitignored directory), `[cards]` runs the parent tree and this one
+in turns, parent, change, change, parent, each in a process of its own;
+`--cards-only` runs `[cards]` alone.  Then `[stages]`: the default 720p
+step at batch 24 stage by stage
 (`gme_tpu_torch.tools.profile_stages`, `2 * --reps` timed replays a
 stage), with the sum of its disjoint stages against the compiled step's
 busy time.  Then it runs the volume kernels at their paths' shapes while
@@ -58,7 +67,7 @@ import time
 
 import numpy as np
 
-from chip_smoke import (BATCH_720P, BATCH_SEARCH, BS20_BATCH, BS20_RADIUS, CLI_BS, CLI_SW,
+from chip_smoke import (BATCH_720P, BATCH_SEARCH, BS20_BATCH, BS20_RADIUS, CLI_BS, CLI_SW, HERE,
                         GME_OPTIONS, PAN_STEP, SEARCH_NAMES, bound, busy_intervals, cuda_ms,
                         device_ms, host_us, synthetic_pan)
 
@@ -175,30 +184,55 @@ def profile_cards(torch, fn, reps, cards):
         sync()
         walls.append(time.perf_counter() - t0)
     wall_ms = float(np.median(walls)) * 1e3
+    # Back to back: CUDA events on card 0 around `reps` calls with no
+    # synchronise between them (every call ends on card 0's stream).
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    events_ms = start.elapsed_time(end) / reps
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         sync()
+    # The host's own time by name in the profiled call (operators and CUDA
+    # runtime calls), largest first.
+    host = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.name] += e.self_cpu_time_total / 1e3
     per = {}
     for d in cards:
         busy_us, _ = busy_intervals(torch, prof, d.index)
         if busy_us <= 0:
             raise RuntimeError(f"the profiler recorded no device activity on {d}")
+        items = sum(e.device_type == torch.autograd.DeviceType.CUDA and e.device_index == d.index
+                    for e in prof.events())
         per[str(d)] = {"busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e3 / wall_ms,
-                       "peak_gib": torch.cuda.max_memory_allocated(d) / 2**30}
-    return {"wall_ms": wall_ms, "walls_ms": [w * 1e3 for w in walls], "cards": per}
+                       "peak_gib": torch.cuda.max_memory_allocated(d) / 2**30,
+                       "device_items": items}
+    return {"wall_ms": wall_ms, "walls_ms": [w * 1e3 for w in walls], "events_ms": events_ms,
+            "host_top_ms": [[n[:60], ms] for n, ms in host.most_common(6)], "cards": per}
 
 
-def band_program_across_cards(torch, prev, curr, reps, card):
+def band_program_across_cards(torch, prev, curr, reps, card, label="change"):
     """`[cards]`: the spatial band program over min(4, visible) distinct
     cards, one 720p pair (on card 0) under diamond, three-step and
     exhaustive: the eager program and the compiled one (per-card graphs
-    split at the collectives) in turns, eager, compiled, compiled, eager."""
+    split at the collectives), each first held to the 1x1 step on card 0
+    bit for bit, then in turns, eager, compiled, compiled, eager; the
+    compiled program's graphs, collective steps, copies and event pairs a
+    call, and whether peer access was enabled.  `label` names the tree in
+    the lines (`--parent`)."""
+    import gme_tpu_torch
     from gme_tpu_torch.config import GMEConfig
     from gme_tpu_torch.parallel import spatial as SP
     from gme_tpu_torch.parallel.mesh import make_mesh
+    from gme_tpu_torch.utils import compiled as CP
 
     S = min(4, torch.cuda.device_count())
     cards = [torch.device("cuda", i) for i in range(S)]
@@ -210,17 +244,59 @@ def band_program_across_cards(torch, prev, curr, reps, card):
         mesh = make_mesh(1, S, cards)
         fns = {"eager": SP.make_spatial_pipeline_eager(mesh, cfg, H, W),
                "compiled": SP.make_spatial_pipeline(mesh, cfg, H, W)}
+        want = gme_tpu_torch.gme_pipeline_batch(prev, curr, cfg)
+        for kind, fn in fns.items():
+            got = fn(prev, curr)
+            differ = [k for k in want if not torch.equal(got[k], want[k])]
+            if differ:
+                raise RuntimeError(f"[cards] {label} {name} {kind}: {differ} differ from the 1x1 "
+                                   "step on card 0")
         for turn, kind in enumerate(("eager", "compiled", "compiled", "eager")):
             r = profile_cards(torch, lambda fn=fns[kind]: fn(prev, curr), reps, cards)
             out[f"{name} s{S} {kind} {turn}"] = r
             per = "; ".join(f"{d} busy {c['busy_ms']:.3f} ms idle {c['idle_share']:.3f} peak "
-                            f"{c['peak_gib']:.2f} GiB" for d, c in r["cards"].items())
-            print(f"[cards] {name} space={S} {kind} (turn {turn}): host {r['wall_ms']:.3f} ms; "
-                  f"{per} ({card})", flush=True)
-        entry = SP.spatial_program_segmented.last_entry
-        out[f"{name} s{S} plan"] = {"graphs": len(entry.graphs), "steps": len(entry.steps)}
+                            f"{c['peak_gib']:.2f} GiB, {c['device_items']} device activities"
+                            for d, c in r["cards"].items())
+            top = ", ".join(f"{n} {ms:.3f}" for n, ms in r["host_top_ms"])
+            print(f"[cards] {label} {name} space={S} {kind} (turn {turn}): host "
+                  f"{r['wall_ms']:.3f} ms, back to back {r['events_ms']:.3f} ms a call; {per}; "
+                  f"host ms by name in the profiled call: {top} ({card})", flush=True)
+        steps = SP.spatial_program_segmented.last_entry.steps
+        plan = {"graphs": len(SP.spatial_program_segmented.last_entry.graphs),
+                "steps": len(steps), "copies": sum(len(s.copies) for s in steps),
+                "event_pairs": sum(getattr(s, "pairs", 0) for s in steps)}
+        out[f"{name} s{S} plan"] = plan
+        print(f"[cards] {label} {name} space={S}: == the 1x1 step on card 0 bit for bit, eager "
+              f"and compiled; compiled a call: {plan['graphs']} graphs, {plan['steps']} collective "
+              f"steps, {plan['copies']} copies, {plan['event_pairs']} event pairs ({card})",
+              flush=True)
         SP.spatial_program_segmented.clear()
         torch.cuda.empty_cache()
+    enabled = getattr(CP, "PEER_ACCESS", None)
+    out["peer_enabled"] = None if enabled is None else {f"{i}->{j}": v for (i, j), v in
+                                                         sorted(enabled.items())}
+    print(f"[cards] {label}: peer access enabled by the program: "
+          f"{out['peer_enabled'] if enabled is not None else 'no such record (copy_)'}", flush=True)
+    return out
+
+
+def cards_in_turns(args, card):
+    """`[cards]` of the `--parent` tree and of this one in turns, parent,
+    change, change, parent, each in a process of its own that imports its
+    tree's `gme_tpu_torch`."""
+    out = {}
+    trees = (("parent", args.parent), ("change", HERE), ("change", HERE), ("parent", args.parent))
+    for turn, (label, tree) in enumerate(trees):
+        cmd = [sys.executable, os.path.join(HERE, "chip_profile.py"), "--cards-only",
+               "--package", tree, "--reps", str(args.reps)]
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"[cards] {label} {turn} failed ({proc.returncode}): "
+                               f"{proc.stderr[-3000:]}")
+        out[f"{label} {turn}"] = json.loads(lines[-1])["cards"]
     return out
 
 
@@ -264,7 +340,14 @@ def latency_bound_kernels(torch, K, bbme, prev, curr, cfg, dev, card, reps=10):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parent", help="a checkout of the parent commit: [cards] then runs it and "
+                    "this tree in turns, each in a process of its own")
+    ap.add_argument("--cards-only", action="store_true", help="run [cards] alone")
+    ap.add_argument("--package", help="the tree whose gme_tpu_torch to import (default: this one)")
     args = ap.parse_args()
+    tree_is_here = not args.package or os.path.samefile(args.package, HERE)
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: FAIL: no CUDA device", file=sys.stderr)
@@ -275,12 +358,22 @@ def main():
     from gme_tpu_torch.ops import cuda_kernels as K
 
     card = smi("name", "power.limit")
-    print(f"[device] {card}", flush=True)
+    print(f"[device] {card}; {torch.cuda.device_count()} cards; gme_tpu_torch from "
+          f"{os.path.relpath(os.path.dirname(gme_tpu_torch.__file__), HERE)}", flush=True)
     K.load_library()
     dev = torch.device("cuda", 0)
     frames = synthetic_pan(BATCH_720P + 1, 720, 1280, PAN_STEP)
     prev = torch.from_numpy(frames[:-1]).to(dev)
     curr = torch.from_numpy(frames[1:]).to(dev)
+    if args.cards_only:
+        if torch.cuda.device_count() < 2:
+            print("chip_profile: FAIL: [cards] needs two or more cards", file=sys.stderr)
+            return 1
+        cards = (cards_in_turns(args, card) if args.parent else
+                 band_program_across_cards(torch, prev[:1], curr[:1], args.reps, card,
+                                           "change" if tree_is_here else "parent"))
+        print(json.dumps({"card": card, "cards": cards}))
+        return 0
     sp_prev, sp_curr = prev[:BATCH_SEARCH], curr[:BATCH_SEARCH]
     cfg = GMEConfig()
 
@@ -314,7 +407,8 @@ def main():
         torch.cuda.empty_cache()
 
     if torch.cuda.device_count() > 1:
-        result["cards"] = band_program_across_cards(torch, prev[:1], curr[:1], args.reps, card)
+        result["cards"] = (cards_in_turns(args, card) if args.parent else
+                           band_program_across_cards(torch, prev[:1], curr[:1], args.reps, card))
     result["latency"] = latency_bound_kernels(torch, K, bbme, prev, curr, cfg, dev, card)
     torch.cuda.empty_cache()
 

@@ -60,8 +60,9 @@ path through the entry points a user calls:
   space 4) on one pair, its eager band program and its compiled one (one
   CUDA graph) each counted and equal to the 1x1 step with as many launches
   of each kernel, the compiled one against its eager body over two calls
-  on different frames with host ms, busy ms and idle share beside the 1x1
-  step's (rows to chiprun_out/mesh.json), the segmented band program
+  on different frames with host ms, busy ms, idle share and device
+  activities a call beside the 1x1 step's, and the ratio of the
+  activities (rows to chiprun_out/mesh.json), the segmented band program
   (per-device graphs split at the collectives, each collective a step of
   copies) called by name in each spatial case, bit-equal to the single
   graph and to the 1x1 step, and `process_video` at data=2,space=2;
@@ -69,13 +70,18 @@ path through the entry points a user calls:
   over min(4, cards) distinct cards (the segmented program that
   `make_spatial_pipeline` gives such a mesh) under diamond, three-step and
   exhaustive on one 720p pair, against its eager body and the 1x1 step on
-  card 0 over two calls, with peer access, host ms and each card's busy
-  ms, idle share and peak memory (rows to chiprun_out/cards.json), and
+  card 0 over two calls, with the graphs, collective steps, copies and
+  event pairs of a call, whether peer access was enabled, host ms and each
+  card's busy ms, idle share and peak memory (rows to
+  chiprun_out/cards.json), and
   `process_video` with a 2x2 mesh over four cards (1x2 over two) on the
   97-frame 720p pan against the 1x1 driver; on one card a line says it was
   not run;
 - then two processes of the command line on a gloo process group, their
   merged records equal to the single-process run's.
+
+`python3 chip_smoke.py --cards-only` runs the device and build phases and
+`[cards]` alone (a run on several cards), and ends with the same last line.
 
 Each 720p path runs with the launch counts set to 0 just before it and read
 just after (the wrappers' counts and the CUDA graph replays', which call no
@@ -1037,7 +1043,10 @@ def mesh_phase(torch, K, card, launch_log, captured, dev, work):
         one_ms, one_busy, one_items = host_and_busy(
             torch, lambda: gme_tpu_torch.gme_pipeline_batch(p1, c1, scfg))
         row = rows[f"spatial s{space} {name} B=1"]
-        row.update(one_host_ms=one_ms, one_busy_ms=one_busy, one_device_items=one_items)
+        ratio = (row["compiled_device_items"] / one_items
+                 if one_items and row["compiled_device_items"] else None)
+        row.update(one_host_ms=one_ms, one_busy_ms=one_busy, one_device_items=one_items,
+                   device_items_ratio=ratio)
         phase("mesh", f"spatial {name} space={space} on one card, 1 pair 720p: the compiled band "
               f"program ({row['graphs']} graph, {row['host_reads']} host reads) == its eager body "
               f"== the 1x1 step (every output bit for bit, PSNR included, seeds 0 and 1); "
@@ -1047,8 +1056,8 @@ def mesh_phase(torch, K, card, launch_log, captured, dev, work):
               f"busy ms compiled {fmt_ms(row['compiled_busy_ms'])} eager {fmt_ms(row['eager_busy_ms'])} "
               f"1x1 {fmt_ms(one_busy)}; idle compiled {fmt_ms(row['compiled_idle'])} eager "
               f"{fmt_ms(row['eager_idle'])}; device activities a call compiled "
-              f"{row['compiled_device_items']} 1x1 {one_items} ({card}; one card runs the bands "
-              "in turn: no speed-up)")
+              f"{row['compiled_device_items']} 1x1 {one_items}, ratio {fmt_ms(ratio)} "
+              f"({card}; one card runs the bands in turn: no speed-up)")
         segmented_case(torch, K, card, SP, mesh, scfg, name, space, step, eager,
                        [(p1, c1), (p2, c2)], launch_log, captured, rows, same)
     SP.spatial_program_jit.clear()
@@ -1143,21 +1152,24 @@ def cards_phase(torch, K, card, launch_log, captured, work, count):
     `make_spatial_pipeline` on a (1, S) mesh over S = min(4, cards) cards,
     under diamond, three-step and exhaustive, one 720p pair, against its
     eager body over two calls on different frames and against the 1x1 step
-    on card 0 (every output bit for bit), with host ms, busy ms, idle and
-    peak memory per card; then the driver with a (2, S/2) mesh (S 4) or a
-    (1, 2) mesh over the cards against the 1x1 driver, 96 pairs."""
+    on card 0 (every output bit for bit), with the graphs, collective steps,
+    copies and event pairs of a call, whether peer access was enabled, host
+    ms, and busy ms, idle and peak memory per card; then the driver with a
+    (2, S/2) mesh (S 4) or a (1, 2) mesh over the cards against the 1x1
+    driver, 96 pairs."""
     import gme_tpu_torch
     from gme_tpu_torch.config import GMEConfig, MeshConfig, PipelineConfig
     from gme_tpu_torch.io.video import write_y4m
     from gme_tpu_torch.parallel import spatial as SP
     from gme_tpu_torch.parallel.mesh import make_mesh
     from gme_tpu_torch.pipeline.results import process_video
+    from gme_tpu_torch.utils import compiled as CP
 
     S = min(4, count)
     cards = [torch.device("cuda", i) for i in range(S)]
     peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
             for i in range(S) for j in range(S) if i != j}
-    phase("cards", f"{count} cards; peer access {peer} ({card})")
+    phase("cards", f"{count} cards; peer access possible {peer} ({card})")
     H, W = DRIVER_HW
     dev = cards[0]
     calls = []
@@ -1201,10 +1213,13 @@ def cards_phase(torch, K, card, launch_log, captured, work, count):
                              f"{fmt_ms(None if b is None else 1 - b / host)} peak {g:.2f} GiB"
                              for i, (b, g) in row[which].items())
 
+        enabled = {f"{i}->{j}": on for (i, j), on in sorted(CP.PEER_ACCESS.items())}
+        row["peer_enabled"] = enabled
         phase("cards", f"{name} space={S} on {S} cards, 1 pair 720p: the segmented program "
-              f"({row['graphs']} graphs, {row['steps']} collective steps, {row['host_reads']} "
-              f"host reads a call) == its eager body == the 1x1 step on card 0 (every output "
-              f"bit for bit, PSNR and volume_edge_hits included, seeds 0 and 1); launches a "
+              f"({row['graphs']} graphs, {row['steps']} collective steps, {row['copies']} copies, "
+              f"{row['event_pairs']} event pairs, {row['host_reads']} host reads a call; peer "
+              f"access enabled {enabled}) == its eager body == the 1x1 step on card 0 (every "
+              f"output bit for bit, PSNR and volume_edge_hits included, seeds 0 and 1); launches a "
               f"replay {launch_log[path]} == the eager body's; host ms compiled "
               f"{row['compiled_host_ms']:.3f} eager {row['eager_host_ms']:.3f}; compiled per card: "
               f"{cards_line('compiled_cards', row['compiled_host_ms'])}; eager per card: "
@@ -1392,6 +1407,8 @@ def compiled_case(torch, K, card, name, fn, eager, calls, kernels, rows, chain=N
            "eager_device_items": eager_items, "compiled_device_items": comp_items,
            "graphs": sum(len(e.graphs) for e in entries),
            "steps": sum(len(e.steps) for e in entries),
+           "copies": sum(len(s.copies) for e in entries for s in e.steps),
+           "event_pairs": sum(s.pairs for e in entries for s in e.steps),
            "host_reads": reads, "body_runs": body_runs,
            "launches": {k: v for k, v in replayed.items() if v},
            "peak_gib": peak / 2**30, "reserved_gib": reserved / 2**30}
@@ -2133,6 +2150,33 @@ def run(torch):
     return {"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}
 
 
+def run_cards(torch):
+    """`--cards-only`: the device, the build and `[cards]`."""
+    from gme_tpu_torch.ops import cuda_kernels as K
+
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    phase("device", f"{torch.cuda.get_device_name(0)}; device_count={count}; nvidia-smi: {card}")
+    check(count >= 2, "--cards-only needs two or more cards")
+    built = K.build(force=True)
+    phase("build", f"nvcc {built.seconds:.1f} s -> {os.path.relpath(built.path, HERE)}")
+    K.load_library()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke_cards_", dir=out_dir)
+    try:
+        cards_phase(torch, K, card, {}, {}, work, count)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(card)
+    return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                   "count": count}}
+
+
 def main():
     try:
         import torch
@@ -2149,7 +2193,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     try:
-        result = run(torch)
+        result = run_cards(torch) if "--cards-only" in sys.argv[1:] else run(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

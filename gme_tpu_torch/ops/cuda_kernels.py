@@ -32,7 +32,8 @@ all started together, linked into one shared library with a plain C
 interface (`gme_tpu_torch/_build/`, keyed by a hash of the sources and
 flags) and loaded with ctypes.  The library also holds the graph control
 of `utils.compiled.while_loop` (`graph_conditional.cu`: a WHILE node and
-the one-thread kernel that sets its condition), which ports no kernel.
+the one-thread kernel that sets its condition) and the peer copies of a
+split entry's collective steps (`peer_copy.cu`), which port no kernel.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ _SOURCES = (
     "chase_volume.cu",
     "warp_block_field.cu",
     "graph_conditional.cu",
+    "peer_copy.cu",
     "errors.cu",
 )
 _HEADERS = ("gme_kernels.cuh", "cost_volume_small_block.cuh", "cost_volume_tiles.cuh",
@@ -186,8 +188,13 @@ def load_library() -> ctypes.CDLL:
         lib.gme_while_set.argtypes = [u64, p, p]
         lib.gme_while_begin.argtypes = [p, p, u64]
         lib.gme_while_end.argtypes = [p]
+        # Peer copies for `utils.compiled`'s collective steps (no TPU kernel).
+        pp, pi = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+        lib.gme_enable_peer.argtypes = [i, i]
+        lib.gme_run_step.argtypes = [i, pi, pi, pi, pp, pp, pp, pp,
+                                     ctypes.POINTER(ctypes.c_size_t), pp]
         for fn in (lib.gme_while_handle, lib.gme_while_set, lib.gme_while_begin,
-                   lib.gme_while_end):
+                   lib.gme_while_end, lib.gme_enable_peer, lib.gme_run_step):
             fn.restype = ctypes.c_int
         lib.gme_error_string.argtypes = [ctypes.c_int]
         lib.gme_error_string.restype = ctypes.c_char_p

@@ -24,10 +24,18 @@ port runs it in one process, in lockstep over the bands: each band is a
 (`extend_rows`' neighbour rows, `psum`, `all_gather`, `broadcast`,
 `scatter_rows`, `gather`) are functions of the whole list of bands.  They
 are the only places where a tensor moves between devices, each through one
-`utils.compiled.transfer`.  The bands that share a device are stacked into
-the pair dimension for the volume kernels and the chase (`_by_device`);
-every band has the same (Tmax*bs, nbw*bs) shape (`_band_tmax`), so a level
-is one launch of each kernel per device, as in the single-device step.
+`utils.compiled.transfer`.  As JAX's `lax.psum` and `lax.all_gather` leave
+their results on every shard, `psum` and the errors' `all_gather` deliver
+to every device of the bands: each device sorts its copy of the errors,
+solves its copy of the moments and builds the affine and model fields from
+its own parameters (`Replicated`), so nothing is sent back out; only the
+program's inputs are broadcast and scattered.  The bands that share a
+device run stacked into the pair dimension (`_by_device`): every band has
+the same (Tmax*bs, nbw*bs) shape (`_band_tmax`), so the pyramid taps, the
+block pads, the volume kernels and the chase, the moments, the error
+diffs, the compensation gather and the metrics run once per device, as
+the single-device step runs them once; the collectives take per-band views
+of the stacked tensors.
 
 The JAX package jits its sharded step.  Here the lockstep program
 (`spatial_program`) is compiled (`utils.compiled`): where every slot of the
@@ -44,7 +52,7 @@ single-device step under `search_impl="volume"`.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +83,9 @@ from gme_tpu_torch.parallel.mesh import SPACE_AXIS, Mesh
 from gme_tpu_torch.utils.compiled import compiled, transfer
 
 Bands = List[torch.Tensor]  # S tensors (B, rows, ...), band k on its slot's device
+# A replicated value: one copy on each device of the bands, in band order
+# (`_devices`), as `lax.psum` and `lax.all_gather` leave theirs on every shard.
+Replicated = Dict[torch.device, Any]
 
 
 # ---------------------------------------------------------------------------
@@ -121,17 +132,26 @@ def extend_rows(bands: Bands, top: int, bottom: int) -> Bands:
     return _exchange([(bands, top, bottom)])[0]
 
 
-def psum(parts: Sequence) -> object:
+def psum(parts: Sequence) -> Replicated:
     """The sum of the bands' tensors, or of each tuple of tensors as
-    `lax.psum` sums a tree, on the first band's device (every band reads the
-    same value; integer sums are exact in any order)."""
+    `lax.psum` sums a tree, on every device of the bands, as `lax.psum`
+    leaves it on every shard.  Each band's part goes to every device but
+    the one whose own part it adds to first, in one transfer (on one device:
+    every part but the first band's), and each device adds the parts up in
+    band order.  Integer sums are exact in any order, so every copy is
+    bit-equal."""
     tree = isinstance(parts[0], tuple)
     rows = [p if tree else (p,) for p in parts]
-    moved = iter(transfer([(t, rows[0][0].device) for r in rows[1:] for t in r]))
-    totals = list(rows[0])
-    for _ in rows[1:]:
-        totals = [t + next(moved) for t in totals]
-    return tuple(totals) if tree else totals[0]
+    devs = _devices([r[0] for r in rows])
+    home = {d: next(k for k, r in enumerate(rows) if r[0].device == d) for d in devs}
+    moved = iter(transfer([(t, d) for d in devs for k, r in enumerate(rows) if k != home[d]
+                           for t in r]))
+    out = {}
+    for d in devs:
+        got = [r if k == home[d] else tuple(next(moved) for _ in r) for k, r in enumerate(rows)]
+        totals = tuple(torch.stack(col).sum(0, dtype=col[0].dtype) for col in zip(*got))
+        out[d] = totals if tree else totals[0]
+    return out
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int,
@@ -158,12 +178,21 @@ def scatter_rows(frames: Sequence[torch.Tensor], devices: Sequence[torch.device]
 
 def gather(out: Dict[str, object], device: torch.device) -> Dict[str, torch.Tensor]:
     """A step's outputs on `device`: each list of bands concatenated along
-    the rows, every other value moved there."""
-    leaves = [t for v in out.values() for t in (v if isinstance(v, list) else [v])]
+    the rows; of each replicated value the copy on `device`, or else the
+    first device's copy moved there."""
+    leaves = []
+    for v in out.values():
+        if isinstance(v, list):
+            leaves += v
+        elif device not in v:
+            leaves.append(next(iter(v.values())))
     moved = iter(transfer([(t, device) for t in leaves]))
     got = {}
     for k, v in out.items():
-        got[k] = torch.cat([next(moved) for _ in v], dim=1) if isinstance(v, list) else next(moved)
+        if isinstance(v, list):
+            got[k] = torch.cat([next(moved) for _ in v], dim=1)
+        else:
+            got[k] = v[device] if device in v else next(moved)
     return got
 
 
@@ -174,6 +203,11 @@ COLLECTIVES = ("_exchange", "extend_rows", "psum", "all_gather", "broadcast", "s
                "gather")
 
 
+def _devices(bands: Bands) -> List[torch.device]:
+    """The bands' devices, each once, in band order."""
+    return list(dict.fromkeys(b.device for b in bands))
+
+
 def _by_device(bands: Bands) -> List[List[int]]:
     """The band indices grouped by device, in band order."""
     groups: Dict[torch.device, List[int]] = {}
@@ -182,11 +216,31 @@ def _by_device(bands: Bands) -> List[List[int]]:
     return list(groups.values())
 
 
+def _stack(bands: Bands, ks: List[int]) -> torch.Tensor:
+    """The bands `ks` (all on one device) stacked into the pair dimension."""
+    return torch.cat([bands[k] for k in ks]) if len(ks) > 1 else bands[ks[0]]
+
+
 def _unstack(t: torch.Tensor, ks: List[int], out: list) -> None:
     """Split a tensor stacked over the bands `ks` (leading dim
-    len(ks) * B) back into `out[k]`."""
+    len(ks) * B) back into `out[k]`, views of `t`."""
     for i, part in enumerate(t.reshape((len(ks), -1) + tuple(t.shape[1:]))):
         out[ks[i]] = part
+
+
+def _band_ints(values: List[int], device) -> torch.Tensor:
+    """(len(values),) int32 per-band integers, filled on `device`: a tensor
+    built from a host list would be a copy from the host, which a CUDA
+    graph capture cannot hold.  One fill, or one arange where the values
+    step evenly."""
+    if len(set(values)) == 1:
+        return torch.full((len(values),), values[0], dtype=torch.int32, device=device)
+    steps = {b - a for a, b in zip(values, values[1:])}
+    if len(steps) == 1:
+        step = steps.pop()
+        return torch.arange(values[0], values[0] + step * len(values), step, dtype=torch.int32,
+                            device=device)
+    return torch.cat([torch.full((1,), v, dtype=torch.int32, device=device) for v in values])
 
 
 # ---------------------------------------------------------------------------
@@ -195,22 +249,22 @@ def _unstack(t: torch.Tensor, ks: List[int], out: list) -> None:
 
 def _pyrdown_band(bands: Bands) -> Bands:
     """One cv2.pyrDown level on the row bands: a 2-row halo exchange, and
-    REFLECT_101 at the frame's top and bottom only (JAX spatial.py:109-131).
-    Band heights must be even (`validate_spatial_shapes`)."""
+    REFLECT_101 at the frame's top and bottom only (JAX spatial.py:109-131),
+    the taps once per device on its stacked bands.  Band heights must be
+    even (`validate_spatial_shapes`)."""
     S = len(bands)
-    lh, W = bands[0].shape[1:]
-    x = [b.float() for b in bands]
-    ext = extend_rows(x, 2, 2)  # (B, lh + 4, W)
-    out = []
-    for k in range(S):
-        e = ext[k]
-        if k == 0:  # rows -2, -1 -> 2, 1
-            e = torch.cat([x[k][:, 2:3], x[k][:, 1:2], e[:, 2:]], dim=1)
-        if k == S - 1:  # rows H, H + 1 -> H - 2, H - 3
-            e = torch.cat([e[:, :lh + 2], x[k][:, lh - 2:lh - 1], x[k][:, lh - 3:lh - 2]], dim=1)
-        e = F.pad(e, (2, 2), mode="reflect")  # columns: numpy's "reflect"
+    B, lh, W = bands[0].shape
+    ext = extend_rows(bands, 2, 2)  # (B, lh + 4, W) uint8
+    out = [None] * S
+    for ks in _by_device(bands):
+        e = torch.cat([ext[k] for k in ks])  # a fresh tensor: its edge rows are set below
+        if ks[0] == 0:  # rows -2, -1 -> 2, 1
+            e[:B, :2] = bands[0][:, 1:3].flip(1)
+        if ks[-1] == S - 1:  # rows H, H + 1 -> H - 2, H - 3
+            e[-B:, lh + 2:] = bands[S - 1][:, lh - 3:lh - 1].flip(1)
+        e = F.pad(e.float(), (2, 2), mode="reflect")  # columns: numpy's "reflect"
         acc = _taps_stride2(_taps_stride2(e, 1, lh // 2), 2, (W + 1) // 2)
-        out.append(torch.floor((acc + 128.0) * (1.0 / 256.0)).byte())
+        _unstack(torch.floor((acc + 128.0) * (1.0 / 256.0)).byte(), ks, out)
     return out
 
 
@@ -234,44 +288,62 @@ def _band_rows(k: int, lh: int, H: int, bs: int) -> Tuple[int, int]:
     return -(-(k * lh) // bs), min(-(-((k + 1) * lh) // bs), H // bs)
 
 
-def _band_origins(gb0s: List[int], device) -> torch.Tensor:
-    """(len(gb0s),) int32 first block rows of bands, filled on `device`:
-    a tensor built from a host list would be a copy from the host, which a
-    CUDA graph capture cannot hold."""
-    return torch.cat([torch.full((1,), g, dtype=torch.int32, device=device) for g in gb0s])
-
-
 def _band_tmax(H: int, space: int, bs: int) -> int:
     """Most block rows owned by any band."""
     lh = H // space
     return max(max(b - a, 0) for a, b in (_band_rows(k, lh, H, bs) for k in range(space)))
 
 
+class _Blocks(NamedTuple):
+    """A device's stacked bands of one level (`_band_blocks`)."""
+    ks: List[int]  # its bands, in band order
+    first: List[int]  # each band's first owned block row (gb0)
+    gb0: torch.Tensor  # (len(ks),) int32: `first` on the device
+    valid: torch.Tensor  # (len(ks), Tmax) bool: the owned block rows
+    prev: torch.Tensor  # (len(ks)*B, Tmax*bs, nbw*bs) uint8
+    curr: torch.Tensor  # (len(ks)*B, Tmax*bs + above + below, nbw*bs + above + right) uint8
+
+
+class _Field(NamedTuple):
+    """A device's share of a banded block field (`_banded_field`)."""
+    ks: List[int]
+    first: List[int]
+    gb0: torch.Tensor  # (len(ks),) int32
+    valid: torch.Tensor  # (len(ks), Tmax) bool
+    field: torch.Tensor  # (len(ks)*B, Tmax, nbw, 2) int32
+    hits: torch.Tensor  # (len(ks)*B,) int32 ring visits of the owned rows
+
+
 def _band_blocks(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int,
-                 above: int, below: int, right: int):
-    """Each band's volume inputs (JAX spatial.py:163-210, 326-347): the
-    previous-frame rows [gb0*bs, (gb0+Tmax)*bs), cropped to whole blocks,
-    and the current-frame rows [gb0*bs - above, (gb0+Tmax)*bs + below),
-    columns padded by `above` on the left and cropped to nbw*bs + above +
-    right, uint8 with zeros beyond the frame.  Returns (prev, curr, gb0,
-    valid) lists; valid (Tmax,) bool marks the owned block rows."""
+                 above: int, below: int, right: int) -> List[_Blocks]:
+    """Each device's volume inputs (JAX spatial.py:163-210, 326-347), its
+    bands stacked: of each band the previous-frame rows [gb0*bs,
+    (gb0+Tmax)*bs), cropped to whole blocks, and the current-frame rows
+    [gb0*bs - above, (gb0+Tmax)*bs + below), columns padded by `above` on
+    the left and cropped to nbw*bs + above + right (one pad a device),
+    uint8 with zeros beyond the frame."""
     S = len(prev_bands)
     lh = prev_bands[0].shape[1]
-    nbh, nbw = _block_grid(H, W, bs)
+    nbw = _block_grid(H, W, bs)[1]
     Tmax = _band_tmax(H, S, bs)
     ext_b = max(0, Tmax * bs + bs - 1 - lh)
     prev_ext, curr_ext = _exchange([([p[:, :, : nbw * bs] for p in prev_bands], 0, ext_b),
                                     (curr_bands, above, ext_b + below)])
-    prev_blk, curr_blk, gb0s, valid = [], [], [], []
-    for k in range(S):
-        gb0, gb1 = _band_rows(k, lh, H, bs)
-        start = gb0 * bs - k * lh  # in [0, bs)
-        prev_blk.append(prev_ext[k][:, start:start + Tmax * bs])
-        c = F.pad(curr_ext[k], (above, right))[:, :, : nbw * bs + above + right]
-        curr_blk.append(c[:, start:start + Tmax * bs + above + below])
-        gb0s.append(gb0)
-        valid.append(gb0 + torch.arange(Tmax, device=prev_bands[k].device) < gb1)
-    return prev_blk, curr_blk, gb0s, valid
+    rows = [_band_rows(k, lh, H, bs) for k in range(S)]
+    start = [rows[k][0] * bs - k * lh for k in range(S)]  # in [0, bs)
+    out = []
+    for ks in _by_device(prev_bands):
+        dev = prev_bands[ks[0]].device
+        prev = torch.cat([prev_ext[k][:, start[k]:start[k] + Tmax * bs] for k in ks])
+        curr = torch.cat([curr_ext[k][:, start[k]:start[k] + Tmax * bs + above + below]
+                          for k in ks])
+        # Pad `above` columns on the left; pad or crop the right to nbw*bs + right.
+        curr = F.pad(curr, (above, nbw * bs + right - W))
+        first = [rows[k][0] for k in ks]
+        owned = _band_ints([max(rows[k][1] - rows[k][0], 0) for k in ks], dev)
+        valid = torch.arange(Tmax, dtype=torch.int32, device=dev) < owned[:, None]
+        out.append(_Blocks(ks, first, _band_ints(first, dev), valid, prev, curr))
+    return out
 
 
 def _stacked_origins(gb0: torch.Tensor, B: int, Tmax: int, nbw: int, bs: int) -> torch.Tensor:
@@ -283,98 +355,92 @@ def _stacked_origins(gb0: torch.Tensor, B: int, Tmax: int, nbw: int, bs: int) ->
     return og[:, None].expand(-1, B, -1, -1, -1).reshape(-1, Tmax, nbw, 2)
 
 
+def _per_pair(t: torch.Tensor, B: int) -> torch.Tensor:
+    """A per-band (n, ...) tensor repeated for each of the B pairs of its
+    band: (n*B, ...)."""
+    return t[:, None].expand((t.shape[0], B) + tuple(t.shape[1:])).reshape(
+        (-1,) + tuple(t.shape[1:]))
+
+
 def _banded_volume(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int, R: int,
                    pnorm: int):
     """The masked banded cost volumes of the diamond and three-step walks
     (JAX spatial.py:163-217), one `compute_cost_volume_band` per device on
-    the stacked bands.  Yields (ks, volume (len(ks)*B, Tmax, nbw, D*D),
-    origins (len(ks)*B, Tmax, nbw, 2)) per device, and returns with the
-    per-band gb0 and valid lists."""
-    prev_blk, curr_blk, gb0s, valid = _band_blocks(prev_bands, curr_bands, H, W, bs, R, R, R)
+    the stacked bands: [(blocks, volume (len(ks)*B, Tmax, nbw, D*D),
+    origins (len(ks)*B, Tmax, nbw, 2))] per device."""
     B = prev_bands[0].shape[0]
-    Tmax, nbw = prev_blk[0].shape[1] // bs, prev_blk[0].shape[2] // bs
-    groups = []
-    for ks in _by_device(prev_bands):
-        dev = prev_bands[ks[0]].device
-        gb0 = _band_origins([gb0s[k] for k in ks], dev)
-        vol = compute_cost_volume_band(
-            torch.cat([prev_blk[k] for k in ks]).contiguous(),
-            torch.cat([curr_blk[k] for k in ks]).contiguous(),
-            gb0[:, None].expand(-1, B).reshape(-1), (H, W), bs, R, pnorm,
-        )
-        groups.append((ks, vol, _stacked_origins(gb0, B, Tmax, nbw, bs)))
-    return groups, gb0s, valid
+    out = []
+    for blk in _band_blocks(prev_bands, curr_bands, H, W, bs, R, R, R):
+        Tmax, nbw = blk.prev.shape[1] // bs, blk.prev.shape[2] // bs
+        vol = compute_cost_volume_band(blk.prev, blk.curr, _per_pair(blk.gb0, B), (H, W), bs,
+                                       R, pnorm)
+        out.append((blk, vol, _stacked_origins(blk.gb0, B, Tmax, nbw, bs)))
+    return out
 
 
 def banded_diamond_field(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int,
-                         radius: int, pnorm: int, max_iters: int):
-    """Diamond-search field of each band's block rows: (field list of
-    (B, Tmax, nbw, 2) int32, valid list of (Tmax,) bool, gb0 list, edge-hit
-    list of (B,) int32 counting the owned rows only).  Walk semantics of the
+                         radius: int, pnorm: int, max_iters: int) -> List[_Field]:
+    """Diamond-search field of each band's block rows, per device (the
+    edge hits count the owned rows only).  Walk semantics of the
     single-device volume-engine `diamond_search`."""
-    groups, gb0s, valid = _banded_volume(prev_bands, curr_bands, H, W, bs, radius, pnorm)
-    S = len(prev_bands)
-    field, hits = [None] * S, [None] * S
-    for ks, vol, origins in groups:
-        count = torch.cat([valid[k] for k in ks]).reshape(len(ks), 1, -1, 1)
-        count = count.expand(len(ks), vol.shape[0] // len(ks), -1, origins.shape[2])
+    B = prev_bands[0].shape[0]
+    out = []
+    for blk, vol, origins in _banded_volume(prev_bands, curr_bands, H, W, bs, radius, pnorm):
+        count = _per_pair(blk.valid, B)[:, :, None].expand(origins.shape[:3])
         best, edge = diamond_walk_volume(vol, origins, H, W, bs, radius, max_iters,
-                                         count_mask=count.reshape(origins.shape[:3]))
-        _unstack(_field(best, origins), ks, field)
-        _unstack(edge, ks, hits)
-    return field, valid, gb0s, hits
+                                         count_mask=count)
+        out.append(_Field(blk.ks, blk.first, blk.gb0, blk.valid, _field(best, origins), edge))
+    return out
 
 
 def banded_threestep_field(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int,
-                           sw: int, pnorm: int):
+                           sw: int, pnorm: int) -> List[_Field]:
     """Three-step field of each band's block rows: the banded volume at
     three-step's exact radius and the single-device rounds
     (`ops.bbme.threestep_walk`) on global coordinates; the contract of
     `banded_diamond_field`, edge hits 0."""
     R = threestep_search_radius(bs, sw)
-    groups, gb0s, valid = _banded_volume(prev_bands, curr_bands, H, W, bs, R, pnorm)
-    field = [None] * len(prev_bands)
-    for ks, vol, origins in groups:
+    out = []
+    for blk, vol, origins in _banded_volume(prev_bands, curr_bands, H, W, bs, R, pnorm):
         d = threestep_walk(volume_evaluator(vol, origins, R), origins, H, W, bs, sw)
-        _unstack(torch.stack([d[..., 1], d[..., 0]], dim=-1).int(), ks, field)
-    return field, valid, gb0s, _no_hits(prev_bands)
+        field = torch.stack([d[..., 1], d[..., 0]], dim=-1).int()
+        out.append(_Field(blk.ks, blk.first, blk.gb0, blk.valid, field, _no_hits(field)))
+    return out
 
 
 def banded_exhaustive_field(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int,
-                            sw: int, pnorm: int):
+                            sw: int, pnorm: int) -> List[_Field]:
     """Exhaustive field of each band's block rows: the band's volume over
     the window range(-sw, sw + bs) and a masked first-minimum argmin, column
     offset outer (JAX spatial.py:293-380, reference bbme.py:105-179); the
     contract of `banded_diamond_field`, edge hits 0."""
     D = 2 * sw + bs
-    prev_blk, curr_blk, gb0s, valid = _band_blocks(prev_bands, curr_bands, H, W, bs,
-                                                   sw, sw + bs - 1, sw + bs - 1)
     B = prev_bands[0].shape[0]
-    Tmax, nbw = prev_blk[0].shape[1] // bs, prev_blk[0].shape[2] // bs
-    field = [None] * len(prev_bands)
-    for ks in _by_device(prev_bands):
-        dev = prev_bands[ks[0]].device
-        vol = _dfd_cost_volume(torch.cat([prev_blk[k] for k in ks]).contiguous(),
-                               torch.cat([curr_blk[k] for k in ks]).contiguous(), bs, D, pnorm)
+    out = []
+    for blk in _band_blocks(prev_bands, curr_bands, H, W, bs, sw, sw + bs - 1, sw + bs - 1):
+        n, dev = len(blk.ks), blk.prev.device
+        Tmax, nbw = blk.prev.shape[1] // bs, blk.prev.shape[2] // bs
+        vol = _dfd_cost_volume(blk.prev, blk.curr, bs, D, pnorm)
         offsets = torch.arange(-sw, sw + bs, dtype=torch.int32, device=dev)
-        gb0 = _band_origins([gb0s[k] for k in ks], dev)
-        row = ((gb0[:, None] + torch.arange(Tmax, dtype=torch.int32, device=dev)) * bs)[..., None]
-        valid_r = (row + offsets >= 0) & (row + offsets <= H - bs)  # (len(ks), Tmax, D_wr)
+        ar = torch.arange(Tmax, dtype=torch.int32, device=dev)
+        row = ((blk.gb0[:, None] + ar) * bs)[..., None]
+        valid_r = (row + offsets >= 0) & (row + offsets <= H - bs)  # (n, Tmax, D_wr)
         valid_c = _offset_mask(nbw, bs, W, offsets)  # (nbw, D_wc)
         mask = valid_r[:, None, :, None, None, :] & valid_c[None, None, None, :, :, None]
-        cost = vol.reshape(len(ks), B, Tmax, nbw, D, D).transpose(-1, -2)  # (.., D_wc, D_wr)
-        cost = cost.masked_fill(~mask, _INF).reshape(len(ks) * B, Tmax, nbw, D * D)
+        cost = vol.reshape(n, B, Tmax, nbw, D, D).transpose(-1, -2)  # (.., D_wc, D_wr)
+        cost = cost.masked_fill(~mask, _INF).reshape(n * B, Tmax, nbw, D * D)
         kk = torch.argmin(cost, dim=-1)  # first minimum == the reference's scan order
-        _unstack(torch.stack([offsets[kk // D], offsets[kk % D]], dim=-1), ks, field)
-    return field, valid, gb0s, _no_hits(prev_bands)
+        field = torch.stack([offsets[kk // D], offsets[kk % D]], dim=-1)
+        out.append(_Field(blk.ks, blk.first, blk.gb0, blk.valid, field, _no_hits(field)))
+    return out
 
 
-def _no_hits(bands: Bands) -> List[torch.Tensor]:
-    return [torch.zeros(b.shape[0], dtype=torch.int32, device=b.device) for b in bands]
+def _no_hits(field: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(field.shape[0], dtype=torch.int32, device=field.device)
 
 
 def _banded_field(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int, radius: int,
-                  cfg: GMEConfig):
+                  cfg: GMEConfig) -> List[_Field]:
     """Search-procedure dispatch for the banded field (diamond, the GME
     default; exhaustive and three-step at `cfg.search_window`)."""
     if cfg.searching_procedure == DIAMOND:
@@ -395,58 +461,89 @@ def _banded_field(prev_bands: Bands, curr_bands: Bands, H: int, W: int, bs: int,
 # Distributed affine fit
 # ---------------------------------------------------------------------------
 
-def _first_params_psum(fields: Bands, valid: List[torch.Tensor]) -> torch.Tensor:
+def _per_band(groups: Sequence[_Field], stacked: Sequence[torch.Tensor]) -> list:
+    """Per-band views of tensors stacked per device (leading dim
+    len(ks) * B), in band order: what the collectives take."""
+    out = [None] * sum(len(g.ks) for g in groups)
+    for g, t in zip(groups, stacked):
+        _unstack(t, g.ks, out)
+    return out
+
+
+def _first_params_psum(groups: Sequence[_Field]) -> Replicated:
     """Translation-only init: a0, b0 = the mean of the dense field over the
     owned cells (reference motion.py:160-188), the sums psum'd and divided
-    as JAX spatial.py:396-413 divides them.  (B, 6) float32."""
+    on every device as JAX spatial.py:396-413 divides them.  (B, 6) float32
+    on each device."""
     parts = []
-    for f, v in zip(fields, valid):
-        m = v[:, None].long()
-        n = (m.sum() * f.shape[2]).expand(f.shape[0])
-        parts.append(torch.stack([(f[..., 0].long() * m).sum(dim=(1, 2)),
-                                  (f[..., 1].long() * m).sum(dim=(1, 2)), n], dim=1))
-    sums = psum(parts).float()
-    a0 = sums[:, 0] / sums[:, 2]
-    b0 = sums[:, 1] / sums[:, 2]
-    z = torch.zeros_like(a0)
-    return torch.stack([a0, z, z, b0, z, z], dim=1)
+    for g in groups:
+        n, nbw = len(g.ks), g.field.shape[2]
+        m = g.valid.long()[:, None, :, None]  # (n, 1, Tmax, 1)
+        f = g.field.reshape((n, -1) + tuple(g.field.shape[1:])).long() * m[..., None]
+        count = (m.sum(dim=(1, 2, 3)) * nbw)[:, None].expand(f.shape[:2])
+        parts.append(torch.stack([f[..., 0].sum(dim=(2, 3)), f[..., 1].sum(dim=(2, 3)), count],
+                                 dim=-1).reshape(-1, 3))
+    out = {}
+    for d, sums in psum(_per_band(groups, parts)).items():
+        sums = sums.float()
+        a0 = sums[:, 0] / sums[:, 2]
+        b0 = sums[:, 1] / sums[:, 2]
+        z = torch.zeros_like(a0)
+        out[d] = torch.stack([a0, z, z, b0, z, z], dim=1)
+    return out
 
 
-def _fit_psum(fields: Bands, inliers: Bands, gb0s: List[int], coord_stride: int) -> torch.Tensor:
-    """Distributed least-squares affine fit: each band's exact integer
-    moments with global block rows, one psum, the single-device solve, so
-    the parameters equal `fit_normal_equations`' (JAX spatial.py:416-437)."""
-    moments = psum([int_moments(f, m, coord_stride, row0=g)
-                    for f, m, g in zip(fields, inliers, gb0s)])
-    return params_from_moments(moments)
+def _fit_psum(groups: Sequence[_Field], inliers: Sequence[torch.Tensor],
+              coord_stride: int) -> Replicated:
+    """Distributed least-squares affine fit: one `int_moments` a device over
+    its stacked bands, with global block rows, one psum of the bands'
+    moments, and the single-device solve on every device, so each copy of
+    the parameters equals `fit_normal_equations`' (JAX spatial.py:416-437:
+    every shard solves the identical system)."""
+    B = groups[0].field.shape[0] // len(groups[0].ks)
+    moments = [int_moments(g.field, m, coord_stride, row0=_per_pair(g.gb0, B))
+               for g, m in zip(groups, inliers)]
+    return {d: params_from_moments(m) for d, m in psum(_per_band(groups, moments)).items()}
 
 
-def _outlier_inliers(fields: Bands, affine_bands: Bands, valid: List[torch.Tensor],
-                     outlier_fraction: float, n_cells: int) -> Bands:
+def _outlier_inliers(groups: Sequence[_Field], affine: Sequence[torch.Tensor],
+                     outlier_fraction: float, n_cells: int) -> List[torch.Tensor]:
     """Distributed outlier rejection (reference motion.py:236-244): the
-    per-cell L1 errors of every band, +inf in padding rows, all-gathered and
-    sorted per pair, the threshold at `(n - int(f*n)) % n` as in JAX
-    spatial.py:440-463.  Returns each band's INLIER mask."""
-    diffs = [(f.int() - a.int()).abs().sum(dim=-1) for f, a in zip(fields, affine_bands)]
-    errs = [torch.where(v[:, None], d.float(), float("inf")) for d, v in zip(diffs, valid)]
-    (gathered,) = all_gather(errs, 1, [errs[0].device])  # (B, S*Tmax, nbw)
-    flat = torch.sort(gathered.reshape(gathered.shape[0], -1), dim=1).values
-    threshold = flat[:, (n_cells - int(outlier_fraction * n_cells)) % n_cells]
-    on = dict(zip(_devices(diffs), broadcast(threshold, _devices(diffs))))
-    return [~(d.float() > on[d.device][:, None, None]) for d in diffs]
+    per-cell L1 errors of every band, +inf in padding rows, all-gathered to
+    every device, where each sorts its copy per pair and takes the
+    threshold at `(n - int(f*n)) % n`, as in JAX spatial.py:440-463.
+    Returns each device's stacked INLIER mask of its owned cells."""
+    diffs, errs = [], []
+    for g, a in zip(groups, affine):
+        n = len(g.ks)
+        d = (g.field.int() - a.int()).abs().sum(dim=-1).float()
+        d = d.reshape((n, -1) + tuple(d.shape[1:]))  # (n, B, Tmax, nbw)
+        diffs.append(d)
+        errs.append(torch.where(g.valid[:, None, :, None], d, float("inf")).flatten(0, 1))
+    devs = [g.field.device for g in groups]
+    gathered = all_gather(_per_band(groups, errs), 1, devs)  # (B, S*Tmax, nbw) on each
+    out = []
+    for g, d, full in zip(groups, diffs, gathered):
+        flat = torch.sort(full.reshape(full.shape[0], -1), dim=1).values
+        threshold = flat[:, (n_cells - int(outlier_fraction * n_cells)) % n_cells]
+        keep = ~(d > threshold[None, :, None, None]) & g.valid[:, None, :, None]
+        out.append(keep.flatten(0, 1))
+    return out
 
 
-def _devices(bands: Bands) -> List[torch.device]:
-    """The bands' devices, each once, in band order."""
-    return list(dict.fromkeys(b.device for b in bands))
-
-
-def _affine_bands(full: torch.Tensor, Tmax: int, gb0s: List[int], bands: Bands) -> Bands:
-    """Rows [gb0, gb0+Tmax) of the dense affine field `full`
-    (B, nbh, nbw, 2), zero past its last row, on each band's device."""
-    padded = torch.cat([full, full.new_zeros((full.shape[0], Tmax) + tuple(full.shape[2:]))], 1)
-    (aff,) = scatter_rows([padded], [b.device for b in bands], gb0s, Tmax)
-    return aff
+def _affine_rows(parameters: Replicated, nbh: int, nbw: int,
+                 groups: Sequence[_Field]) -> List[torch.Tensor]:
+    """Of the dense affine field that each device builds from its own
+    parameters (B, nbh, nbw, 2), rows [gb0, gb0 + Tmax) of each of its
+    bands, zero past the last row, stacked (JAX spatial.py:466-472)."""
+    out = []
+    for g in groups:
+        full = get_motion_field_affine((nbh, nbw), parameters[g.field.device])
+        Tmax = g.field.shape[1]
+        padded = F.pad(full, (0, 0, 0, 0, 0, Tmax))
+        out.append(torch.cat([padded[:, r:r + Tmax] for r in g.first]) if len(g.first) > 1
+                   else padded[:, g.first[0]:g.first[0] + Tmax])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -457,10 +554,14 @@ def spatial_gme_step(prev_bands: Bands, curr_bands: Bands, cfg: GMEConfig, H: in
                      W: int) -> Dict[str, object]:
     """One full pipeline step on the row bands of (B, H, W) uint8 frames
     (JAX spatial.py:470-585): pyramid, dense init, per-level robust re-fit,
-    dense affine field, compensation, differences, PSNR.  The band-sharded
-    outputs ("compensated", "diff_curr_prev", "diff_curr_comp") are lists
-    of (B, lh, W) bands; the others are the replicated values, on the first
-    band's device."""
+    dense affine field, compensation, differences, PSNR.  Each device runs
+    its bands stacked into the pair dimension, one op a device where the
+    single-device step runs one.  The band-sharded outputs ("compensated",
+    "diff_curr_prev", "diff_curr_comp") are lists of (B, lh, W) bands; the
+    others are `Replicated`: every device of the bands holds its own copy,
+    as every shard does in JAX ("psnr" and "volume_edge_hits" from the
+    psum'd sums, the fields from each device's own parameters), and
+    `gather` takes the output device's copy."""
     levels = cfg.pyramid_levels
     Hs, Ws = [H], [W]
     for _ in range(1, levels):
@@ -470,68 +571,70 @@ def spatial_gme_step(prev_bands: Bands, curr_bands: Bands, cfg: GMEConfig, H: in
     prev_pyr = _pyramids_band(prev_bands, levels)
     curr_pyr = _pyramids_band(curr_bands, levels)
 
-    dense_field, dvalid, _, edge_hits = _banded_field(
-        prev_pyr[0], curr_pyr[0], Hs[0], Ws[0], cfg.dense_block_size,
-        cfg.dense_volume_radius, cfg,
-    )
-    parameters = _first_params_psum(dense_field, dvalid)
+    dense = _banded_field(prev_pyr[0], curr_pyr[0], Hs[0], Ws[0], cfg.dense_block_size,
+                          cfg.dense_volume_radius, cfg)
+    edge_hits = [g.hits for g in dense]
+    parameters = _first_params_psum(dense)
 
     for i in range(1, levels):
-        parameters = parameter_projection(parameters)
+        parameters = {d: parameter_projection(p) for d, p in parameters.items()}
         nbh, nbw = _block_grid(Hs[i], Ws[i], cfg.block_size)
-        field, valid, gb0s, ehits = _banded_field(
-            prev_pyr[i], curr_pyr[i], Hs[i], Ws[i], cfg.block_size, cfg.volume_radius, cfg,
-        )
-        edge_hits = [a + b for a, b in zip(edge_hits, ehits)]
-        Tmax = field[0].shape[1]
-        full = get_motion_field_affine((nbh, nbw), parameters)
-        aff = _affine_bands(full, Tmax, gb0s, field)
-        inlier = _outlier_inliers(field, aff, valid, cfg.outlier_fraction, nbh * nbw)
-        parameters = _fit_psum(field, [m & v[:, None] for m, v in zip(inlier, valid)], gb0s,
-                               cfg.coord_stride)
+        groups = _banded_field(prev_pyr[i], curr_pyr[i], Hs[i], Ws[i], cfg.block_size,
+                               cfg.volume_radius, cfg)
+        edge_hits = [a + g.hits for a, g in zip(edge_hits, groups)]
+        aff = _affine_rows(parameters, nbh, nbw, groups)
+        inliers = _outlier_inliers(groups, aff, cfg.outlier_fraction, nbh * nbw)
+        parameters = _fit_psum(groups, inliers, cfg.coord_stride)
 
     nbh_f, nbw_f = _block_grid(H, W, cfg.block_size)
-    model_motion_field = get_motion_field_affine((nbh_f, nbw_f), parameters)
+    model_motion_field = {d: get_motion_field_affine((nbh_f, nbw_f), p)
+                          for d, p in parameters.items()}
 
-    # Compensation of each band against the all-gathered previous frame
-    # (reference motion.py:289-321: uncovered and out-of-frame pixels keep
-    # the original value).
-    lh = prev_bands[0].shape[1]
+    # Compensation of each device's stacked bands against the all-gathered
+    # previous frame (reference motion.py:289-321: uncovered and
+    # out-of-frame pixels keep the original value).
+    S = len(prev_bands)
+    B, lh = prev_bands[0].shape[:2]
     warp_bs = H // nbh_f  # reference motion.py:303 derives bs from the ratio
     devs = _devices(prev_bands)
-    # The broadcast first: its transfer and the gather's are one step.
-    field_on = dict(zip(devs, broadcast(model_motion_field, devs)))
     prev_full = dict(zip(devs, all_gather(prev_bands, 1, devs)))
-    compensated, sses = [], []
-    for k, (p, c) in enumerate(zip(prev_bands, curr_bands)):
-        dev = p.device
-        B = p.shape[0]
-        rr = k * lh + torch.arange(lh, dtype=torch.int32, device=dev)[:, None]
-        cc = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-        d = field_on[dev].int()
-        d_px = d[:, (rr // warp_bs).clamp(0, nbh_f - 1).long(),
-                 (cc // warp_bs).clamp(0, nbw_f - 1).long()]  # (B, lh, W, 2)
+    compensated, diff_cp, diff_cc, sses = [None] * S, [None] * S, [None] * S, [None] * S
+    for ks in _by_device(prev_bands):
+        dev = prev_bands[ks[0]].device
+        n = len(ks)
+        p, c = _stack(prev_bands, ks), _stack(curr_bands, ks)
+        rr = (_band_ints([k * lh for k in ks], dev)[:, None]
+              + torch.arange(lh, dtype=torch.int32, device=dev))  # (n, lh) global rows
+        cc = torch.arange(W, dtype=torch.int32, device=dev)
+        d = model_motion_field[dev].int()
+        d_px = d[:, (rr // warp_bs).clamp(0, nbh_f - 1).long()[:, :, None],
+                 (cc // warp_bs).clamp(0, nbw_f - 1).long()]  # (B, n, lh, W, 2)
+        d_px = d_px.transpose(0, 1)  # (n, B, lh, W, 2)
+        rr, cc = rr[:, None, :, None], cc[None, None, None, :]
         covered = (rr < nbh_f * warp_bs) & (cc < nbw_f * warp_bs)
         src_r = rr - d_px[..., 1]
         src_c = cc - d_px[..., 0]
         ok = covered & (src_r >= 0) & (src_c >= 0) & (src_r < H) & (src_c < W)
-        idx = src_r.clamp(0, H - 1) * W + src_c.clamp(0, W - 1)
-        warped = prev_full[dev].reshape(B, H * W).gather(1, idx.reshape(B, -1).long())
-        warped = warped.reshape(B, lh, W)
-        comp = torch.where(ok, warped, p)
-        compensated.append(comp)
-        sses.append(sse(c, comp))
+        idx = (src_r.clamp(0, H - 1) * W + src_c.clamp(0, W - 1)).reshape(n, B, -1)
+        src = prev_full[dev].reshape(1, B, H * W).expand(n, B, H * W)
+        warped = src.gather(2, idx.long()).reshape(n * B, lh, W)
+        comp = torch.where(ok.reshape(n * B, lh, W), warped, p)
+        _unstack(comp, ks, compensated)
+        _unstack(sse(c, comp), ks, sses)
+        _unstack(frame_difference(c, p), ks, diff_cp)
+        _unstack(frame_difference(c, comp), ks, diff_cc)
 
     # The bands' edge-hit counts are disjoint: each counts its owned rows only.
-    sse_total, hits = psum(list(zip(sses, edge_hits)))
+    hits = _per_band(dense, edge_hits)
+    totals = psum(list(zip(sses, hits)))
     return {
         "parameters": parameters,
         "model_motion_field": model_motion_field,
         "compensated": compensated,
-        "diff_curr_prev": [frame_difference(c, p) for p, c in zip(prev_bands, curr_bands)],
-        "diff_curr_comp": [frame_difference(c, m) for m, c in zip(compensated, curr_bands)],
-        "psnr": psnr_from_sse(sse_total, H * W),
-        "volume_edge_hits": hits,
+        "diff_curr_prev": diff_cp,
+        "diff_curr_comp": diff_cc,
+        "psnr": {d: psnr_from_sse(t[0], H * W) for d, t in totals.items()},
+        "volume_edge_hits": {d: t[1] for d, t in totals.items()},
     }
 
 

@@ -44,12 +44,19 @@ segments, from tensors the segments wrote into buffers the entry keeps.
 Adjacent transfers with no device work between them form one step.  A
 replay makes the other devices' current streams wait on the caller's,
 replays each segment on its device's current stream (the devices run their
-segments at the same time), runs each step's copies on those streams (a
-copy between devices puts a two-way barrier between them), and makes the
-caller's stream wait on every other device.  Such a function captures this
-way on one device too.  On the CPU its body runs with the transfers
-copying, and `last_entry` holds the plan of segments and steps, without
-graphs.
+segments at the same time), runs each step's copies grouped by (source,
+target) device, all of a step's groups in one call into the kernel library
+(`csrc/peer_copy.cu`), and makes the caller's stream wait on every other
+device.  A group within one device is plain copies on its stream.  A group
+between two cards is one event pair: an event recorded on the source
+card's stream that the target card's stream waits on, the group's raw
+peer copies (`cudaMemcpyPeerAsync`) on the target's stream, and an event
+recorded after them that the source's stream waits on, since its next
+segment overwrites the copies' sources.  Peer access is enabled where
+`torch.cuda.can_device_access_peer` says it exists (`PEER_ACCESS`).  A
+failed copy raises.  Such a function captures this way on one device too.
+On the CPU its body runs with the transfers copying, and `last_entry`
+holds the plan of segments and steps, without graphs.
 
 `while_loop(cond, body, state, chunk)` is the counterpart of
 `lax.while_loop` for loops whose body is masked (a finished element does
@@ -228,16 +235,93 @@ class _Graph:
         self.body_pool_uses = 0
 
 
+# (card, peer) -> whether the card's access to the peer's memory was enabled,
+# for the cards a collective step has copied between (`_enable_peer`).
+PEER_ACCESS: Dict[Tuple[int, int], bool] = {}
+
+
+def _enable_peer(a: int, b: int) -> None:
+    """Enable access both ways between cards a and b where
+    `torch.cuda.can_device_access_peer` says it exists; record in
+    `PEER_ACCESS` whether it was."""
+    for dev, peer in ((a, b), (b, a)):
+        if (dev, peer) in PEER_ACCESS:
+            continue
+        ok = torch.cuda.can_device_access_peer(dev, peer)
+        if ok:
+            _cuda_call(f"enable cuda:{dev}'s access to cuda:{peer}",
+                       cuda_kernels.load_library().gme_enable_peer(dev, peer))
+        PEER_ACCESS[dev, peer] = ok
+
+
+class _StepTable:
+    """A step's groups as `csrc/peer_copy.cu`'s `gme_run_step` takes them:
+    per group its source and target card, its count of copies and its event
+    pair (recorded once here so that each event exists on its card), then
+    every copy's target, source and bytes, group by group."""
+
+    def __init__(self, groups):
+        n = len(groups)
+        ints = ctypes.c_int * n
+        self.n = n
+        self.src = ints(*[s.index for s, _ in groups])
+        self.dst = ints(*[d.index for _, d in groups])
+        self.count = ints(*[len(c) for c in groups.values()])
+        self.events = []  # the events' owners
+        sent, done = [], []
+        for s, d in groups:
+            if s == d:
+                sent.append(None)
+                done.append(None)
+                continue
+            _enable_peer(s.index, d.index)
+            pair = torch.cuda.Event(), torch.cuda.Event()
+            pair[0].record(torch.cuda.current_stream(s))
+            pair[1].record(torch.cuda.current_stream(d))
+            self.events.append(pair)
+            sent.append(pair[0].cuda_event)
+            done.append(pair[1].cuda_event)
+        self.sent = (ctypes.c_void_p * n)(*sent)
+        self.done = (ctypes.c_void_p * n)(*done)
+        copies = [c for cs in groups.values() for c in cs]
+        self.dsts = (ctypes.c_void_p * len(copies))(*[d.data_ptr() for d, _ in copies])
+        self.srcs = (ctypes.c_void_p * len(copies))(*[s.data_ptr() for _, s in copies])
+        self.bytes = (ctypes.c_size_t * len(copies))(
+            *[s.numel() * s.element_size() for _, s in copies])
+
+
 @dataclass
 class _Step:
     """A split entry's collective step: copies (dst, src) run by the host
     between two segments, from tensors the segments before wrote into
-    buffers the entry keeps (so eager work never reuses them)."""
+    buffers the entry keeps (so eager work never reuses them), in groups by
+    (source, target) device (module docstring)."""
     copies: List[Tuple[torch.Tensor, torch.Tensor]]
+    _table: Optional[_StepTable] = field(default=None, repr=False)
 
-    def run(self) -> None:
+    @property
+    def groups(self) -> Dict[Tuple[torch.device, torch.device],
+                             List[Tuple[torch.Tensor, torch.Tensor]]]:
+        """The copies by (source device, target device), each in order."""
+        out: Dict[Tuple[torch.device, torch.device], List] = {}
         for dst, src in self.copies:
-            dst.copy_(src)
+            out.setdefault((src.device, dst.device), []).append((dst, src))
+        return out
+
+    @property
+    def pairs(self) -> int:
+        """The event pairs a run records: one per group between two devices."""
+        return sum(src != dst for src, dst in self.groups)
+
+    def run(self, streams) -> None:
+        """Enqueue the copies; `streams[k]` is card k's current stream."""
+        if self._table is None:
+            self._table = _StepTable(self.groups)
+        t = self._table
+        _cuda_call(f"run a collective step of {len(self.copies)} copies",
+                   cuda_kernels.load_library().gme_run_step(
+                       t.n, t.src, t.dst, t.count, t.sent, t.done, t.dsts, t.srcs, t.bytes,
+                       streams))
 
 
 @dataclass
@@ -286,9 +370,14 @@ class Entry:
         others = [torch.cuda.current_stream(d) for d in self.devices[1:]]
         for s in others:
             s.wait_stream(caller)
+        streams = None  # each device's current stream, by index, for the steps
         for g in self.plan:
             if isinstance(g, _Step):
-                g.run()
+                if streams is None:
+                    streams = (ctypes.c_void_p * (max(d.index for d in self.devices) + 1))()
+                    for d, s in zip(self.devices, [caller] + others):
+                        streams[d.index] = s.cuda_stream
+                g.run(streams)
                 continue
             g.graph.replay()
             for name, n in g.launches.items():
@@ -391,10 +480,14 @@ def _launched_since(before: Dict[str, int]) -> Dict[str, int]:
     return {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
 
 
-def _graph_call(step: str, err: int) -> None:
+def _cuda_call(step: str, err: int) -> None:
     if err != 0:
         msg = cuda_kernels.load_library().gme_error_string(err).decode()
-        raise RuntimeError(f"while_loop: could not {step}: {msg} ({err})")
+        raise RuntimeError(f"could not {step}: {msg} ({err})")
+
+
+def _graph_call(step: str, err: int) -> None:
+    _cuda_call(f"{step} of a while_loop", err)
 
 
 def _release_pool(pool, uses: int) -> None:

@@ -19,7 +19,9 @@ And what makes a capture possible, checked on the CPU: the fit runs on
 program read nothing back to the host and make no tensor from host data
 but 0-dim scalars, 2D-log reads once a chunk, `while_loop` keeps the
 loop's semantics, and the helper's cache key; the compiled spatial step
-equals its eager body.
+equals its eager body; the band program's `psum` and error gather deliver
+to every device, its step sends nothing back out, and a collective step
+groups its copies by (source, target) device.
 """
 
 import dataclasses
@@ -473,16 +475,16 @@ def test_compiled_spatial_step_equals_its_eager_body():
         spatial.make_spatial_pipeline(make_mesh(2, 2, ["cpu"] * 4), cfg, H, W)(prev[:1], curr[:1])
 
 
-@pytest.mark.parametrize("data,space,steps", [(1, 2, 20), (1, 4, 20), (2, 2, 39)])
+@pytest.mark.parametrize("data,space,steps", [(1, 2, 16), (1, 4, 16), (2, 2, 31)])
 def test_segmented_spatial_program_counts_its_steps(data, space, steps):
     """The segmented band program on the CPU runs its split session, which
     captures nothing there: the diamond step makes `steps` collective steps
     (scatter; 2 pyramid levels x 2 frames; dense init: halos, psum; each of
-    2 levels: halos, affine rows, error gather, threshold, moments psum;
-    the field's broadcast with the previous frame's gather; the SSE and
-    edge-hit psum; the outputs' gather; each data shard its own), a segment
-    before each and after the last, and equals the eager program and the
-    1x1 step."""
+    2 levels: halos, error gather, moments psum; the previous frame's
+    gather; the SSE and edge-hit psum; the outputs' gather; each data shard
+    its own), a segment before each and after the last, and equals the
+    eager program and the 1x1 step.  Every device fits its own copy of the
+    parameters, so no step sends them out again."""
     prev, curr = _spatial_pairs(B=2)
     H, W = prev.shape[1:]
     cfg = GMEConfig(search_impl="volume")
@@ -497,6 +499,156 @@ def test_segmented_spatial_program_counts_its_steps(data, space, steps):
     one = tgme.gme_pipeline_batch(prev, curr, cfg)
     for k in want:
         assert torch.equal(got[k], want[k]) and torch.equal(got[k], one[k]), k
+
+
+def test_spatial_step_sends_nothing_back_out(monkeypatch):
+    """`spatial_gme_step` calls neither `broadcast` nor `scatter_rows`: every
+    device fits its own parameters and builds its own fields from them, so
+    only the band program's inputs are broadcast or scattered."""
+    called = []
+
+    def refuse(name):
+        def call(*args, **kw):
+            called.append(name)
+            raise AssertionError(f"spatial_gme_step called {name}")
+        return call
+
+    prev, curr = _spatial_pairs()
+    H, W = prev.shape[1:]
+    bands = [[x[:, k * 16:(k + 1) * 16] for k in range(4)] for x in (prev, curr)]
+    for name in ("broadcast", "scatter_rows"):
+        monkeypatch.setattr(spatial, name, refuse(name))
+    for procedure in (DIAMOND, THREESTEP, EXHAUSTIVE):
+        spatial.spatial_gme_step(*bands, GMEConfig(searching_procedure=procedure), H, W)
+    assert called == []
+
+
+def _recording_transfer(moves_made):
+    """A stand-in for `utils.compiled.transfer` over bands on `cpu` and
+    `meta`: it records each call's (source tensor, target device) moves and
+    moves the values, keeping the host values behind each meta tensor (a
+    meta tensor holds none) so that a copy moved back to the CPU has them;
+    a meta tensor computed on `meta` comes back as zeros."""
+    host = {}  # id of a meta tensor -> (the meta tensor, its values)
+
+    def values(t):
+        if t.device.type != "meta":
+            return t
+        return host[id(t)][1] if id(t) in host else torch.zeros(t.shape, dtype=t.dtype)
+
+    def transfer(moves):
+        moves_made.append([(t, d) for t, d in moves])
+        out = []
+        for t, d in moves:
+            v = values(t)
+            if d.type == "meta":
+                m = v.to("meta")
+                host[id(m)] = (m, v)
+                out.append(m)
+            else:
+                out.append(v.clone())
+        return out
+
+    return transfer, values, host
+
+
+def test_psum_and_all_gather_deliver_to_every_device(monkeypatch):
+    """As `lax.psum` and `lax.all_gather` do, `psum` and the errors'
+    `all_gather` leave their result on every device of the bands: over four
+    bands on `cpu`, `cpu`, `meta`, `meta`, each device is a target of the
+    one transfer and receives every band's part but the one it starts from,
+    so each adds up the same sum (a tuple of parts too); every band's
+    errors reach both devices, and each device makes its own bands'
+    inlier masks."""
+    moves = []
+    transfer, values, host = _recording_transfer(moves)
+    monkeypatch.setattr(spatial, "transfer", transfer)
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    rng = np.random.RandomState(5)
+    devs = [cpu, cpu, meta, meta]
+
+    def on(d, v):
+        if d == cpu:
+            return v
+        m = v.to("meta")
+        host[id(m)] = (m, v)
+        return m
+
+    sums = [torch.from_numpy(rng.randint(-99, 99, (2, 12))) for _ in devs]
+    hits = [torch.from_numpy(rng.randint(0, 9, (2,)).astype(np.int32)) for _ in devs]
+    for parts, want in (([on(d, v) for d, v in zip(devs, sums)], sum(sums)),
+                        ([(on(d, a), on(d, b)) for d, a, b in zip(devs, sums, hits)],
+                         (sum(sums), sum(hits)))):
+        moves.clear()
+        got = spatial.psum(parts)
+        assert list(got) == [cpu, meta] and len(moves) == 1
+        flat = [p if isinstance(p, tuple) else (p,) for p in parts]
+        home = {cpu: 0, meta: 2}
+        for d in (cpu, meta):
+            sent = [t for t, to in moves[0] if to == d]
+            kept = [t for k, r in enumerate(flat) if k != home[d] for t in r]
+            assert [id(t) for t in sent] == [id(t) for t in kept], d
+            copy = got[d] if isinstance(got[d], tuple) else (got[d],)
+            assert all(c.device == d for c in copy)
+            # What the device added up: its own first part and every part sent to it.
+            n = len(flat[0])
+            received = [tuple(values(t) for t in flat[home[d]])] + [
+                tuple(values(t) for t in sent[i:i + n]) for i in range(0, len(sent), n)]
+            total = tuple(sum(col) for col in zip(*received))
+            assert all(torch.equal(a, b) for a, b in zip(
+                total, want if isinstance(want, tuple) else (want,))), d
+        want_cpu = want if isinstance(want, tuple) else (want,)
+        got_cpu = got[cpu] if isinstance(got[cpu], tuple) else (got[cpu],)
+        assert all(torch.equal(a, b) for a, b in zip(got_cpu, want_cpu))
+
+    # The errors' all_gather in the outlier rejection, on bands of 3 block rows.
+    B, T, nbw = 2, 3, 5
+    fields = [torch.from_numpy(rng.randint(-6, 7, (B, T, nbw, 2)).astype(np.int32)) for _ in devs]
+    affine = [torch.from_numpy(rng.randint(-6, 7, (B, T, nbw, 2)).astype(np.int32))
+              for _ in devs]
+    valid = [torch.tensor([True, True, k < 3]) for k in range(4)]
+
+    def groups(devices):
+        out, aff = [], []
+        for ks in ([0, 1], [2, 3]) if devices[2] == meta else ([0, 1, 2, 3],):
+            d = devices[ks[0]]
+            gb0 = torch.arange(len(ks), dtype=torch.int32)
+            out.append(spatial._Field(ks, [3 * k for k in ks], on(d, gb0),
+                                      on(d, torch.stack([valid[k] for k in ks])),
+                                      on(d, torch.cat([fields[k] for k in ks])),
+                                      on(d, torch.zeros(len(ks) * B, dtype=torch.int32))))
+            aff.append(on(d, torch.cat([affine[k] for k in ks])))
+        return out, aff
+
+    moves.clear()
+    masks = spatial._outlier_inliers(*groups(devs), 0.3, 4 * T * nbw)
+    (gathers,) = moves
+    for d in (cpu, meta):
+        assert [t.shape for t, to in gathers if to == d] == [(B, T, nbw)] * 4, d
+    assert [(m.device, m.shape) for m in masks] == [(cpu, (2 * B, T, nbw)),
+                                                    (meta, (2 * B, T, nbw))]
+
+
+def test_collective_step_groups_copies_by_device_pair():
+    """A collective step runs its copies in groups by (source, target)
+    device, each group's copies in order: one event pair a group between
+    two devices, none within one.  The segmented band program on the CPU
+    has only (cpu, cpu) groups."""
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    src = [torch.arange(4), torch.arange(6), torch.ones(3)]
+    step = C._Step([(torch.empty(4, device="meta"), src[0]), (torch.empty(6), src[1]),
+                    (torch.empty(3, device="meta"), src[2]),
+                    (torch.empty(4), torch.empty(4, device="meta"))])
+    groups = step.groups
+    assert list(groups) == [(cpu, meta), (cpu, cpu), (meta, cpu)]
+    assert [s for _, s in groups[cpu, meta]] == [src[0], src[2]]
+    assert [s for _, s in groups[cpu, cpu]] == [src[1]]
+    assert step.pairs == 2
+    prev, curr = _spatial_pairs()
+    mesh = make_mesh(1, 4, ["cpu"] * 4)
+    spatial.spatial_program_segmented(prev, curr, mesh.devices, GMEConfig(), *prev.shape[1:])
+    steps = spatial.spatial_program_segmented.last_entry.steps
+    assert all(list(s.groups) == [(cpu, cpu)] and s.pairs == 0 for s in steps)
 
 
 def test_split_session_merges_adjacent_transfers():

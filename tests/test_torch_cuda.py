@@ -625,7 +625,9 @@ def test_mesh_across_cards_equals_one_card(cuda, tmp_path):
     at the collectives): over two calls on different frames it equals its
     eager body and the 1x1 step bit for bit, a replay launches what the
     eager body launches and nothing eagerly, and the first call's outputs
-    are unchanged by the second."""
+    are unchanged by the second.  Every card fits its own copy of the
+    parameters (the eager step body): each card's copy of every replicated
+    output equals card 0's and the 1x1 step's."""
     from gme_tpu_torch.config import MeshConfig
     from gme_tpu_torch.parallel import spatial
     from gme_tpu_torch.parallel.data_parallel import make_sharded_pipeline
@@ -653,12 +655,22 @@ def test_mesh_across_cards_equals_one_card(cuda, tmp_path):
             got = step(p, c)
             for k in want:
                 assert got[k].device == cards[0] and torch.equal(got[k], want[k]), (name, k)
+    for p, c in calls:
+        lh = H // n
+        bands = spatial.scatter_rows((p, c), cards, [k * lh for k in range(n)], lh)
+        step = spatial.spatial_gme_step(*bands, cfg, H, W)
+        want = gme_pipeline_batch(p, c, cfg)
+        for k in ("parameters", "model_motion_field", "psnr", "volume_edge_hits"):
+            assert list(step[k]) == cards, k
+            for card, copy in step[k].items():
+                assert copy.device == card and torch.equal(copy.to(cards[0]), want[k]), (card, k)
     for name, m in meshes.items():
         assert spatial._program_for(m) is spatial.spatial_program_segmented
         _compiled_equals_eager(runs[name], spatial.make_spatial_pipeline_eager(m, cfg, H, W),
                                calls)
         entry = spatial.spatial_program_segmented.last_entry
         assert len(entry.devices) == n and entry.steps, name
+        assert any(s.pairs for s in entry.steps), name  # copies between cards run as peer copies
     clip = str(tmp_path / "clip.y4m")
     write_y4m(clip, [prev[0]] + [np.roll(prev[0], (i, -i), (0, 1)) for i in range(1, 5)])
     pcfg = PipelineConfig(gme=cfg, batch_size=2, write_images=False)
@@ -909,7 +921,7 @@ def test_segmented_spatial_program_on_one_card(cuda, space):
     _compiled_equals_eager(segmented, spatial.make_spatial_pipeline_eager(mesh, cfg, H, W),
                            calls)
     entry = spatial.spatial_program_segmented.last_entry
-    assert len(entry.steps) == 20 and len(entry.graphs) == 20 + (B > 1)
+    assert len(entry.steps) == 16 and len(entry.graphs) == 16 + (B > 1)
     for p, c in calls:
         got = segmented(p, c)
         single = spatial.spatial_program_jit(p, c, mesh.devices, cfg, H, W)

@@ -8,7 +8,9 @@ output exact; PSNR to 1e-4 dB) and to the port's own 1x1 step bit for bit,
 PSNR included (both take it from an exact integer SSE).  One case also holds
 it to JAX's `make_spatial_pipeline` on the eight virtual devices.  Then the
 halo exchange at multi-hop widths, the banded pyramid, the stacking of the
-bands into one kernel call a level, and the driver with a mesh.
+bands into one kernel call a level (and one fit, gather and metric a
+device), every device's copy of the replicated outputs, and the driver
+with a mesh.
 """
 
 import os
@@ -134,12 +136,22 @@ def test_spatial_space2(rng):
 
 
 def test_spatial_params_identical_across_devices(rng):
-    """Every band solves from the same psum'd moments: one finite parameter
-    row per pair."""
+    """Every device of the bands solves from the same psum'd moments: one
+    finite parameter row per pair, and the step's replicated outputs hold a
+    copy on every device of the bands, each bit-equal to the 1x1 step's
+    (parameters, model field, PSNR, edge hits)."""
     cfg = GMEConfig(search_impl="volume")
-    out, _, _ = _spatial(rng, cfg, 2, 128, 80, 2, 4)
+    out, prev, curr = _spatial(rng, cfg, 2, 128, 80, 2, 4)
     assert out["parameters"].shape == (2, 6)
     assert bool(torch.isfinite(out["parameters"]).all())
+    prev, curr = torch.from_numpy(prev), torch.from_numpy(curr)
+    bands = [[x[:, k * 32:(k + 1) * 32] for k in range(4)] for x in (prev, curr)]
+    step = spatial.spatial_gme_step(*bands, cfg, 128, 80)
+    one = gme_pipeline_batch(prev, curr, cfg)
+    for key in ("parameters", "model_motion_field", "psnr", "volume_edge_hits"):
+        assert list(step[key]) == spatial._devices(bands[0]), key
+        for copy in step[key].values():
+            assert torch.equal(copy, one[key]), key
 
 
 def test_spatial_shape_validation():
@@ -267,9 +279,17 @@ def test_pyramid_band_equals_full_frame_pyrdown(H, W, space):
 
 def test_spatial_stacks_the_bands_into_one_call_a_level(rng, monkeypatch):
     """Bands on one device make one call of each volume wrapper and of the
-    chase a level, as many as the single-device step makes."""
+    chase a level, as many as the single-device step makes; and one
+    `int_moments` a level, one `sse`, two `frame_difference` and one
+    compensation gather (of the uint8 previous frame) a step, where the
+    single-device step makes the same fits, metrics and one warp."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gme_tpu_torch.models import gme
+    from gme_tpu_torch.ops import affine, metrics
+
     names = ("cost_volume_small_block", "cost_volume_mse_block", "cost_volume_rowoffset",
-             "cost_volume_cross", "chase_volume")
+             "cost_volume_cross", "chase_volume", "warp_block_field")
     calls = {}
 
     def counting(name, fn):
@@ -280,16 +300,31 @@ def test_spatial_stacks_the_bands_into_one_call_a_level(rng, monkeypatch):
 
     for n in names:
         monkeypatch.setattr(cuda_kernels, n, counting(n, getattr(cuda_kernels, n)))
+    # The band program's own names, then the single-device step's.
+    for module, n in ((spatial, "int_moments"), (spatial, "sse"), (spatial, "frame_difference"),
+                      (affine, "int_moments"), (metrics, "sse"), (gme, "frame_difference")):
+        monkeypatch.setattr(module, n, counting(n, getattr(module, n)))
+
+    class FrameGathers(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.gather.default and args[0].dtype == torch.uint8:
+                calls["uint8 gather"] = calls.get("uint8 gather", 0) + 1
+            return func(*args, **(kwargs or {}))
+
     cfg = GMEConfig(search_impl="volume")
     prev, curr = _pairs(rng, 2, 96, 84)
     calls.clear()
-    make_spatial_pipeline(_cpu_mesh(1, 4), cfg, 96, 84)(torch.from_numpy(prev),
-                                                        torch.from_numpy(curr))
+    with FrameGathers():
+        make_spatial_pipeline(_cpu_mesh(1, 4), cfg, 96, 84)(torch.from_numpy(prev),
+                                                            torch.from_numpy(curr))
     banded = dict(calls)
     calls.clear()
-    gme_pipeline_batch(torch.from_numpy(prev), torch.from_numpy(curr), cfg)
-    assert banded == calls == {"cost_volume_small_block": 1, "cost_volume_mse_block": 2,
-                               "chase_volume": 3}, (banded, calls)
+    with FrameGathers():
+        gme_pipeline_batch(torch.from_numpy(prev), torch.from_numpy(curr), cfg)
+    kernels = {"cost_volume_small_block": 1, "cost_volume_mse_block": 2, "chase_volume": 3}
+    fits = {"int_moments": 2, "sse": 1, "frame_difference": 2}
+    assert banded == {**kernels, **fits, "uint8 gather": 1}, banded
+    assert calls == {**kernels, **fits, "warp_block_field": 1}, calls
 
 
 @pytest.mark.parametrize("bs,R,T,nbw,gb0,pnorm", [
