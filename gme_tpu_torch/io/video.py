@@ -14,6 +14,7 @@ Grayscale conversion matches cv2.cvtColor(BGR2GRAY): the ITU-R BT.601 weights
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import List, Optional
 
@@ -199,6 +200,9 @@ class FramePrefetcher:
     stream ends before i.  A decoder exception re-raises in the consumer —
     but only for frames the decoder never produced: the valid decoded
     prefix of a corrupt-tail stream stays accessible.
+
+    With `timers` (a `utils.profiling.StageTimer`), each wait of the decoder
+    on `max_ahead` is a `decode.blocked` stage on the decoder's thread.
     """
 
     def __init__(
@@ -206,9 +210,11 @@ class FramePrefetcher:
         path: str,
         native: Optional[bool] = None,
         max_ahead: Optional[int] = None,
+        timers=None,
     ):
         import threading
 
+        self._timers = timers
         self._frames: List[Optional[np.ndarray]] = []
         self._released = 0  # frames below this index are evicted
         self._max_ahead = max_ahead
@@ -230,12 +236,11 @@ class FramePrefetcher:
         try:
             for fr in iter_video_frames(path, native):
                 with self._cv:
-                    while (
-                        self._max_ahead is not None
-                        and len(self._frames) - self._released >= self._max_ahead
-                        and not self._closed
-                    ):
-                        self._cv.wait()
+                    if self._full():
+                        with (self._timers.stage("decode.blocked") if self._timers
+                              else contextlib.nullcontext()):
+                            while self._full():
+                                self._cv.wait()
                     if self._closed:
                         return
                     self._frames.append(fr)
@@ -250,6 +255,15 @@ class FramePrefetcher:
                     self._decode_s = _time.perf_counter() - t0
                 self._done = True
                 self._cv.notify_all()
+
+    def _full(self) -> bool:
+        """The decoder must wait: `max_ahead` frames past the watermark are
+        buffered and the prefetcher is open (call holding the lock)."""
+        return (
+            self._max_ahead is not None
+            and len(self._frames) - self._released >= self._max_ahead
+            and not self._closed
+        )
 
     def frame(self, i: int) -> Optional[np.ndarray]:
         """Frame i, blocking until decoded; None if the stream ended first."""

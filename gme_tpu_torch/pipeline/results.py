@@ -26,6 +26,22 @@ records are the restart ledger).  Meanwhile the main thread runs the next
 batch's step; at most two batches are in flight, and an error in the
 writer re-raises in `process_video`.
 
+Tracing.  Every stage is a `StageTimer` span (`utils/profiling.py`), on
+the main thread (`startup` until the first dispatch; `decode_wait`;
+`dispatch` and its children `.stack`, `.upload`, `.step`, `.copy_out`;
+`writer_wait`), the writer thread (`device_get`; `write_outputs` and its
+children `.drain`, `.records`) and the decoder's (`decode.blocked`).  The
+writer works pair by pair, so its per-pair work, `write_outputs.diff`,
+`.png` and `.needle`, is timed by clock reads and added up a batch, with no
+span.  On CUDA each batch records four timing events on the upload
+device's stream (before and after the upload, after the step, after the
+output copy: the event the writer waits on), outside the step's graph.
+The writer reads them, and the device's idle gap since the previous
+batch's last event; each gap ends on the host clock where the main thread
+recorded the batch's first event, and `attribute_idle` shares it out among
+the main thread's spans.
+summary.json holds the stages, `counters` and, on CUDA, `device`.
+
 The device is explicit: `device="cuda"` (the default) raises without CUDA;
 the CPU runs only when `device="cpu"` is passed.  A mesh other than 1x1
 (`cfg.mesh`) runs over the slots `devices`: by default the visible cards
@@ -37,6 +53,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
@@ -50,7 +67,8 @@ from gme_tpu_torch.io.video import FramePrefetcher
 from gme_tpu_torch.io.writers import PSNRRecords, write_png
 from gme_tpu_torch.models.gme import gme_pipeline_batch, gme_pipeline_batch_adaptive
 from gme_tpu_torch.parallel.mesh import Mesh, default_devices, make_mesh
-from gme_tpu_torch.utils.profiling import StageTimer, maybe_profile
+from gme_tpu_torch.utils.compiled import capture_stats
+from gme_tpu_torch.utils.profiling import StageTimer, attribute_idle, maybe_profile
 
 _STREAMS = (
     "frames",
@@ -149,11 +167,38 @@ def _get_writer(workers: int = 2):
     return AsyncPNGWriter(workers) if available() else None
 
 
-def _start_copy(out: Dict[str, torch.Tensor]):
+class _Marks:
+    """A batch's timing events on the upload device's current stream:
+    before the upload, after it, after the step and after the output copy;
+    `host_ns` is the host's clock (`perf_counter_ns`) as the first was
+    recorded."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.current_stream(device)
+        self.events: List[torch.cuda.Event] = []
+        self.record()
+        self.host_ns = time.perf_counter_ns()
+
+    def record(self) -> None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(self.stream)
+        self.events.append(event)
+
+    def read(self, prev: Optional["_Marks"]) -> Tuple[float, float, float, Optional[int]]:
+        """(upload, step, copy-out seconds, the idle ns since `prev`'s last
+        event, None without one), once the last event has completed."""
+        e = self.events
+        upload, step, copy = (e[i].elapsed_time(e[i + 1]) / 1e3 for i in range(3))
+        gap = round(prev.events[-1].elapsed_time(e[0]) * 1e6) if prev is not None else None
+        return upload, step, copy, gap
+
+
+def _start_copy(out: Dict[str, torch.Tensor], marks: Optional[_Marks]):
     """Start copying a batch's outputs to the host: pinned host tensors
     filled by non-blocking copies, and the CUDA event recorded after them
-    on the outputs' device (None on the CPU, where the outputs already are
-    on the host)."""
+    that the writer waits on (None on the CPU, where the outputs already
+    are on the host): `marks`' fourth where the outputs are on its stream,
+    else an untimed event on the outputs' device."""
     dev = next(iter(out.values())).device
     if dev.type != "cuda":
         return out, None
@@ -161,8 +206,12 @@ def _start_copy(out: Dict[str, torch.Tensor]):
     for k, v in out.items():
         host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
         host[k].copy_(v, non_blocking=True)
+    stream = torch.cuda.current_stream(dev)
+    if marks is not None and stream == marks.stream:
+        marks.record()
+        return host, marks.events[-1]
     event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(dev))
+    event.record(stream)
     return host, event
 
 
@@ -192,18 +241,22 @@ def process_video(
     fd = cfg.frame_distance
     bsz = cfg.batch_size
     timers = StageTimer()
+    main_thread = threading.get_ident()
+    captures_before = capture_stats()["count"]
 
     video_name = os.path.splitext(os.path.basename(video_path))[0]
     save_path = os.path.join(out_root, video_name)
-    _prepare_dirs(save_path)
-
     # The decoder holds at most `max_ahead` frames past the release
     # watermark: two batches in flight + frame_distance + the current peek,
     # with 2x slack.
     max_ahead = 2 * (2 * bsz + fd + 2)
-    pf = FramePrefetcher(video_path, max_ahead=max_ahead)
-    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="gme-writer")
+    pf = pool = None
+    startup = timers.start("startup")  # until the first dispatch
+    entry_ns = startup.start_ns
     try:
+        _prepare_dirs(save_path)
+        pf = FramePrefetcher(video_path, max_ahead=max_ahead, timers=timers)
+        pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="gme-writer")
         with timers.stage("decode_wait"):
             first = pf.frame(0)
         if first is None:
@@ -220,49 +273,96 @@ def process_video(
         done = set(records.records) if cfg.resume else set()
         writer = _get_writer()
 
-        def _flush(batch_idx: List[int], host, event) -> int:
-            """Writer thread: wait for the batch's copy, write its images,
-            then flush its records; returns its real pairs' edge hits."""
+        # Per timed batch: (host ns of its first event, the device's idle
+        # ns before it or None for a call's first batch, upload, step and
+        # copy-out seconds); appended by the writer thread.
+        device_rows: List[Tuple[int, Optional[int], float, float, float]] = []
+
+        def _flush(batch_idx: List[int], host, event, marks, prev_marks) -> int:
+            """Writer thread: wait for the batch's copy, read its timing
+            events, write its images, then flush its records; returns its
+            real pairs' edge hits."""
             with timers.stage("device_get"):
                 if event is not None:
                     event.synchronize()
                 out = {k: v.numpy() for k, v in host.items()}
+            if marks is not None and len(marks.events) == 4:
+                upload, step_s, copy, gap = marks.read(prev_marks)
+                device_rows.append((marks.host_ns, gap, upload, step_s, copy))
             # Walks stopped on the volume boundary ring, over the real
             # (not padding) pairs of the batch.
             hits = int(out.pop("volume_edge_hits")[: len(batch_idx)].sum())
             with timers.stage("write_outputs"):
-                for k, idx in enumerate(batch_idx):
-                    _write_pair_outputs(
-                        save_path, idx, pf.frame(idx - fd), pf.frame(idx),
-                        {key: out[key][k] for key in out}, writer,
-                        write_images=cfg.write_images,
-                    )
-                    records.add(idx, float(out["psnr"][k]))
-                # Image-before-record fence: every image of these pairs is
-                # on disk before the ledger marks them done.
-                if writer is not None and cfg.write_images:
-                    writer.drain()
-                records.flush()
+                if cfg.write_images:
+                    spent = [0, 0, 0]  # the batch's ns of _PAIR_STAGES
+                    for k, idx in enumerate(batch_idx):
+                        _write_pair_outputs(
+                            save_path, idx, pf.frame(idx - fd), pf.frame(idx),
+                            {key: out[key][k] for key in out}, writer, spent,
+                        )
+                    for name, ns in zip(_PAIR_STAGES, spent):
+                        timers.add(name, ns / 1e9)
+                    # Image-before-record fence: every image of these pairs
+                    # is on disk before the ledger marks them done.
+                    if writer is not None:
+                        with timers.stage("write_outputs.drain"):
+                            writer.drain()
+                with timers.stage("write_outputs.records"):
+                    for k, idx in enumerate(batch_idx):
+                        records.add(idx, float(out["psnr"][k]))
+                    records.flush()
             return hits
+
+        n_slots = h2d_bytes = 0
 
         def _dispatch(batch_idx: List[int]):
             """Run the step on one batch, padded by repeating its last
-            index, and start copying its outputs to the host."""
+            index, and start copying its outputs to the host; returns
+            (host tensors, the copy's event, the batch's timing marks)."""
+            nonlocal startup, n_slots, h2d_bytes
+            if startup is not None:
+                timers.stop(startup)
+                startup = None
             idx_arr = batch_idx + [batch_idx[-1]] * (bsz - len(batch_idx))
             with timers.stage("dispatch"):
-                prev = torch.from_numpy(np.stack([pf.frame(i - fd) for i in idx_arr]))
-                curr = torch.from_numpy(np.stack([pf.frame(i) for i in idx_arr]))
-                return _start_copy(step(prev.to(dev), curr.to(dev)))
+                with timers.stage("dispatch.stack"):
+                    prev = torch.from_numpy(np.stack([pf.frame(i - fd) for i in idx_arr]))
+                    curr = torch.from_numpy(np.stack([pf.frame(i) for i in idx_arr]))
+                # Each event is recorded inside a child span, so that the
+                # parent's own time stays the few statements between them.
+                with timers.stage("dispatch.upload"):
+                    marks = _Marks(dev) if dev.type == "cuda" else None
+                    prev, curr = prev.to(dev), curr.to(dev)
+                    if marks is not None:
+                        marks.record()
+                with timers.stage("dispatch.step"):
+                    out = step(prev, curr)
+                    if marks is not None:
+                        marks.record()
+                with timers.stage("dispatch.copy_out"):
+                    host, event = _start_copy(out, marks)
+            n_slots += len(idx_arr)
+            if marks is not None:
+                h2d_bytes += prev.nbytes + curr.nbytes
+            return host, event, marks
 
         edge_hits_total = 0
+        last_marks = None  # the previous batch's, within this call
         pending = None  # (batch indices, the writer's future)
 
-        def _hand_over(batch_idx: List[int]) -> None:
-            nonlocal edge_hits_total, pending
-            host, event = _dispatch(batch_idx)
-            if pending is not None:  # at most two batches in flight
+        def _wait_writer() -> None:
+            nonlocal edge_hits_total
+            with timers.stage("writer_wait"):
                 edge_hits_total += pending[1].result()  # re-raises the writer's error
-            pending = (batch_idx, pool.submit(_flush, batch_idx, host, event))
+
+        def _hand_over(batch_idx: List[int]) -> None:
+            nonlocal pending, last_marks
+            host, event, marks = _dispatch(batch_idx)
+            if pending is not None:  # at most two batches in flight
+                _wait_writer()
+            pending = (batch_idx, pool.submit(_flush, batch_idx, host, event, marks,
+                                              last_marks))
+            last_marks = marks
 
         n_processed = 0
         t_start = time.perf_counter()
@@ -299,17 +399,22 @@ def process_video(
             if batch:
                 _hand_over(batch)
             if pending is not None:
-                edge_hits_total += pending[1].result()
+                _wait_writer()
         wall = time.perf_counter() - t_start
 
         if writer is not None:
             writer.drain()
     finally:
-        pool.shutdown(wait=True)
-        pf.close()  # stop a decoder still streaming past an early exit
+        if startup is not None:
+            timers.stop(startup)
+        if pool is not None:
+            pool.shutdown(wait=True)
+        if pf is not None:
+            pf.close()  # stop a decoder still streaming past an early exit
     ds = pf.decode_seconds()  # None unless the decode completed
     if ds is not None:
         timers.add("decode", ds)
+    captures = capture_stats()
 
     summary = {
         "video": video_name,
@@ -321,7 +426,16 @@ def process_video(
         "volume_edge_hits": edge_hits_total,
         "psnr": records.summary(),
         "stages": timers.summary(),
+        "counters": {
+            "slots": n_slots,
+            "h2d_bytes": h2d_bytes,
+            "captures": captures["count"] - captures_before,
+            "process_capture_s": captures["seconds"],
+        },
     }
+    if device_rows:
+        summary["device"] = _device_summary(device_rows, entry_ns,
+                                            timers.thread_spans(main_thread))
     if shard is not None:
         summary["shard"] = {"id": shard_id, "num_shards": num_shards,
                             "gop_size": gop_size}
@@ -333,6 +447,27 @@ def process_video(
     return summary
 
 
+def _device_summary(rows, entry_ns: int, main_spans) -> Dict:
+    """The timed batches' device seconds by stage, and their idle gaps
+    shared out among the main thread's spans: a gap of g ns that ended as
+    the main thread recorded a batch's first event, at t, covers [t - g, t]
+    of the host's clock; a call's first batch's, [call entry, t]."""
+    gaps = [(t - gap if gap is not None else entry_ns, t) for t, gap, *_ in rows]
+    return {
+        "upload_s": sum(r[2] for r in rows),
+        "step_s": sum(r[3] for r in rows),
+        "copy_out_s": sum(r[4] for r in rows),
+        "idle_s": sum(b - a for a, b in gaps) / 1e9,
+        "idle_by_stage_s": attribute_idle(main_spans, gaps),
+    }
+
+
+# The writer's per-pair work, added up a batch: host diffs, gray PNGs (to
+# the pool where there is one), needle diagrams (cv2's drawing and the BGR
+# PNG, written on the writer thread).
+_PAIR_STAGES = ("write_outputs.diff", "write_outputs.png", "write_outputs.needle")
+
+
 def _write_pair_outputs(
     save_path: str,
     idx: int,
@@ -340,10 +475,10 @@ def _write_pair_outputs(
     current: np.ndarray,
     out: Dict[str, np.ndarray],
     writer,
-    write_images: bool = True,
+    spent: List[int],
 ) -> None:
-    if not write_images:
-        return
+    """One pair's five image streams; adds the ns each kind of work took
+    to `spent` (in `_PAIR_STAGES`' order)."""
 
     def emit(stream: str, name: str, img: np.ndarray) -> None:
         path = os.path.join(save_path, stream, f"{name}.png")
@@ -356,14 +491,31 @@ def _write_pair_outputs(
         # host-side twin of ops.metrics.frame_difference (exact int math)
         return np.abs(a.astype(np.int32) - b.astype(np.int32)).astype(np.uint8)
 
+    last = time.perf_counter_ns()
+
+    def lap(kind: int) -> None:
+        nonlocal last
+        now = time.perf_counter_ns()
+        spent[kind] += now - last
+        last = now
+
+    DIFF, PNG, NEEDLE = range(3)
     # Reference naming: frames/compensated keyed by idx-5 (results.py:64-77),
     # diffs and the needle diagram keyed by idx (results.py:86-106).
     emit("frames", str(idx - 5), previous)
     emit("compensated", str(idx - 5), out["compensated"])
-    emit("curr_prev_diff", str(idx), diff(current, previous))
-    emit("curr_comp_diff", str(idx), diff(current, out["compensated"]))
+    lap(PNG)
+    d = diff(current, previous)
+    lap(DIFF)
+    emit("curr_prev_diff", str(idx), d)
+    lap(PNG)
+    d = diff(current, out["compensated"])
+    lap(DIFF)
+    emit("curr_comp_diff", str(idx), d)
+    lap(PNG)
     needle = draw_motion_field(previous, out["model_motion_field"])
     emit("model_motion_field", str(idx), needle)
+    lap(NEEDLE)
 
 
 def summarize_results(out_root: str = "results") -> List[Dict]:

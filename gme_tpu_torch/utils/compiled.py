@@ -80,7 +80,9 @@ loop body's launches times its runs are added when the counts are read
 (`replay_launches()`, which reads each body's counter on the device: call
 it after a synchronise, never on a call's path).  So `LAUNCHES` counts the
 eager launches, `replay_launches()` the launches the replays made, and
-`Entry.launches` one call's (the last call's).
+`Entry.launches` one call's (the last call's).  `capture_stats()` counts
+the captures made since the process started and the seconds they took,
+each capture's warm-up run included.
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ import ctypes
 import inspect
 import os
 import threading
+import time
 import traceback
 import warnings
 import weakref
@@ -118,6 +121,10 @@ _TRACING: contextvars.ContextVar = contextvars.ContextVar("gme_tpu_torch_compile
 _REPLAY_LAUNCHES: Dict[str, int] = {name: 0 for name in cuda_kernels.LAUNCHES}
 _LOOPS: "weakref.WeakSet[_Loop]" = weakref.WeakSet()
 
+# Captures (`Compiled._capture`, `_capture_split`) since the process started.
+_CAPTURES: Dict[str, float] = {"count": 0, "seconds": 0.0}
+_CAPTURES_LOCK = threading.Lock()
+
 
 def _fold(loops) -> None:
     """Add each loop body's launches times its runs since the last fold."""
@@ -134,6 +141,13 @@ def replay_launches() -> Dict[str, int]:
     from their counters on the device (module docstring)."""
     _fold(list(_LOOPS))
     return dict(_REPLAY_LAUNCHES)
+
+
+def capture_stats() -> Dict[str, float]:
+    """{"count": captures, "seconds": their wall time} since the process
+    started, failed captures included."""
+    with _CAPTURES_LOCK:
+        return dict(_CAPTURES)
 
 
 def reset_replay_counts() -> None:
@@ -715,7 +729,13 @@ class Compiled:
             entry = self.entries.get(key)
             if entry is None:
                 capture = self._capture_split if self.split else self._capture
-                entry = capture(static, struct, leaves, device)
+                t0 = time.perf_counter()
+                try:
+                    entry = capture(static, struct, leaves, device)
+                finally:
+                    with _CAPTURES_LOCK:
+                        _CAPTURES["count"] += 1
+                        _CAPTURES["seconds"] += time.perf_counter() - t0
                 self.entries[key] = entry
                 while len(self.entries) > MAX_ENTRIES:
                     self.entries.popitem(last=False)[1].release()

@@ -516,6 +516,60 @@ def test_driver_equals_cpu(cuda, tmp_path):
                     == (tmp_path / "cpu" / "alt" / stream / name).read_bytes()), (stream, name)
 
 
+def test_driver_device_events_and_captures(cuda, tmp_path):
+    """The driver's timing events: positive upload, step, copy-out and idle
+    seconds, together no more than the call's wall, the idle shared out
+    whole among the main thread's stages; a call at a new shape captures
+    the step's graph, a second call at that shape captures none."""
+    import time
+
+    clip = str(tmp_path / "alt.y4m")
+    write_y4m(clip, list(_alternating_clip(n=7)))
+    cfg = PipelineConfig(batch_size=4, write_images=False)  # two batches, one padded
+    gme_pipeline_batch.clear()
+    walls, summaries = [], []
+    for name in ("first", "second"):
+        t0 = time.perf_counter()
+        summaries.append(process_video(clip, str(tmp_path / name), cfg, device="cuda"))
+        walls.append(time.perf_counter() - t0)
+    for s, wall in zip(summaries, walls):
+        d = s["device"]
+        for key in ("upload_s", "step_s", "copy_out_s", "idle_s"):
+            assert d[key] > 0, (key, d)
+        assert d["upload_s"] + d["step_s"] + d["copy_out_s"] + d["idle_s"] <= wall, (d, wall)
+        assert sum(d["idle_by_stage_s"].values()) == pytest.approx(d["idle_s"], rel=1e-6)
+        assert s["counters"]["slots"] == 8 and s["pairs_processed"] == 6
+        assert s["counters"]["h2d_bytes"] == 2 * 8 * 128 * 160
+    assert summaries[0]["counters"]["captures"] >= 1
+    assert summaries[1]["counters"]["captures"] == 0
+    assert (summaries[1]["counters"]["process_capture_s"]
+            == summaries[0]["counters"]["process_capture_s"] > 0)
+
+
+def test_driver_timing_events_of_every_batch(cuda, tmp_path, monkeypatch):
+    """Six batches of one pair: every batch reads its own upload, step and
+    copy from its own events, and every batch after the first its idle gap
+    from the batch before, in the order the batches were dispatched."""
+    from gme_tpu_torch.pipeline import results as R
+
+    clip = str(tmp_path / "alt.y4m")
+    write_y4m(clip, list(_alternating_clip(n=7)))
+    seen = []
+    real = R._device_summary
+
+    def keep(rows, *args):
+        seen.extend(rows)
+        return real(rows, *args)
+
+    monkeypatch.setattr(R, "_device_summary", keep)
+    s = process_video(clip, str(tmp_path / "out"), PipelineConfig(batch_size=1, write_images=False),
+                      device="cuda")
+    assert s["counters"]["slots"] == 6 and len(seen) == 6
+    assert seen[0][1] is None and all(r[1] >= 0 for r in seen[1:]), seen
+    assert all(r[2] > 0 and r[3] > 0 and r[4] > 0 for r in seen), seen
+    assert [r[0] for r in seen] == sorted(r[0] for r in seen)
+
+
 # ---------------------------------------------------------------------------
 # Row bands and meshes on one card (the `devices` list names it per slot)
 # ---------------------------------------------------------------------------
