@@ -22,7 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -34,6 +34,9 @@ CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 _ERROR: Optional[str] = None
+# The writer pool's size in each library loaded (by path): the library
+# starts its pool once, at the first size asked for, and ignores the rest.
+_POOL_WORKERS: Dict[str, int] = {}
 
 
 def _libav_flags() -> List[str]:
@@ -192,14 +195,20 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 class AsyncPNGWriter:
-    """The native background PNG writer pool.  `submit` copies the image;
-    `drain` blocks until every submitted file is written and raises if any
-    write failed."""
+    """The native background PNG writer pool: gray and BGR images, each
+    encoded as `write_png` encodes it.  `submit` copies the image; `drain`
+    blocks until every submitted file is written and raises if any write
+    failed.
+
+    The pool starts once a process, with the `workers` of the first
+    writer: a later writer shares it, whatever it asks for, and its
+    `workers` is the size the pool runs at."""
 
     def __init__(self, workers: int = 2):
         self._lib = _lib()
         if self._lib.gme_png_writer_start(workers) != 0:
             raise RuntimeError("failed to start the native png writer pool")
+        self.workers = _POOL_WORKERS.setdefault(self._lib._name, workers)
 
     def submit(self, path: str, img: np.ndarray) -> None:
         img, channels = _image(img)

@@ -18,6 +18,12 @@ and beside a card alike, and it lets several ranks share one card, which
 NCCL ranks cannot.  Without a coordinator the processes run uncoordinated
 (still correct: the GOPs are disjoint); call `merge_rank_records` once all
 ranks have finished.
+
+Ranks on one host that may run on the same cores divide them: with a
+coordinator, each such rank pins itself to a disjoint slice of its cores
+for the call (`_take_host_share`), so that its PNG pool, sized from its
+affinity, takes its share.  Uncoordinated ranks that share a host are
+pinned at launch instead (`taskset -c <cores> python -m ...`).
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Dict, Optional
+import socket
+from typing import Dict, Optional, Set
 
 import torch.distributed as dist
 
@@ -63,6 +70,25 @@ def merge_rank_records(
     return merged
 
 
+def _take_host_share() -> Optional[Set[int]]:
+    """Pin this rank's thread to its slice of the cores it shares with the
+    ranks on its host that may run on the very same cores (threads it
+    starts after, the PNG pool's among them, keep the slice); returns the
+    affinity to restore, or None where there is nothing to divide (a rank
+    alone on its cores, or fewer cores than ranks)."""
+    cores = sorted(os.sched_getaffinity(0))
+    me = (socket.gethostname(), cores)
+    peers = [None] * dist.get_world_size()
+    dist.all_gather_object(peers, me)
+    sharing = [r for r, peer in enumerate(peers) if peer == me]
+    n = len(sharing)
+    if n < 2 or len(cores) < n:
+        return None
+    k = sharing.index(dist.get_rank())
+    os.sched_setaffinity(0, cores[k * len(cores) // n:(k + 1) * len(cores) // n])
+    return set(cores)
+
+
 def process_video_multihost(
     video_path: str,
     out_root: str = "results",
@@ -81,9 +107,12 @@ def process_video_multihost(
     from gme_tpu_torch.pipeline.results import process_video
 
     distributed = num_processes > 1 and coordinator_address is not None
+    restore = None
     if distributed:
         initialize_multihost(coordinator_address, num_processes, process_id)
     try:
+        if distributed:
+            restore = _take_host_share()
         summary = process_video(
             video_path, out_root=out_root, cfg=cfg, max_pairs=max_pairs,
             shard=(process_id, num_processes) if num_processes > 1 else None,
@@ -95,6 +124,8 @@ def process_video_multihost(
                 video_name = os.path.splitext(os.path.basename(video_path))[0]
                 merge_rank_records(os.path.join(out_root, video_name), num_processes)
     finally:
+        if restore is not None:
+            os.sched_setaffinity(0, restore)
         if distributed:
             dist.destroy_process_group()
     return summary

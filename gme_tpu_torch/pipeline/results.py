@@ -20,11 +20,13 @@ port's step is a compiled `gme_pipeline_batch` (a CUDA graph replay that
 reads nothing back; the adaptive dispatch reads its certificate once), and
 each finished batch is handed to one writer thread.
 Its outputs go to the host by a non-blocking copy into pinned memory, and
-the writer waits on a CUDA event recorded after the copy, then writes the
-images and, after them, the records (the image-before-record fence: the
-records are the restart ledger).  Meanwhile the main thread runs the next
-batch's step; at most two batches are in flight, and an error in the
-writer re-raises in `process_video`.
+the writer waits on a CUDA event recorded after the copy, then computes the
+diffs and draws the needle diagrams, hands every PNG (gray and BGR) to the
+native pool (its workers sized from the cores the process may use), drains
+it, and only then flushes the records (the image-before-record fence: the
+records are the restart ledger).  A call without images starts no pool.
+Meanwhile the main thread runs the next batch's step; at most two batches
+are in flight, and an error in the writer re-raises in `process_video`.
 
 Tracing.  Every stage is a `StageTimer` span (`utils/profiling.py`), on
 the main thread (`startup` until the first dispatch; `decode_wait`;
@@ -159,12 +161,21 @@ def _build_step(cfg: PipelineConfig, mesh: Optional[Mesh], H: int, W: int):
     return step
 
 
-def _get_writer(workers: int = 2):
+def _png_workers() -> int:
+    """The PNG pool's size: the cores this process may run on (its
+    affinity, so a process pinned to part of a host takes its share; GOP
+    shards that share a host divide it, `parallel/multihost.py`), and at
+    least 2."""
+    return max(2, len(os.sched_getaffinity(0)))
+
+
+def _get_writer():
     """The native asynchronous PNG writer when it builds, else None
-    (synchronous writes)."""
+    (synchronous writes).  The pool starts at the first call's size and
+    keeps it for the process (`AsyncPNGWriter.workers`)."""
     from gme_tpu_torch.native.loader import AsyncPNGWriter, available
 
-    return AsyncPNGWriter(workers) if available() else None
+    return AsyncPNGWriter(_png_workers()) if available() else None
 
 
 class _Marks:
@@ -271,7 +282,9 @@ def process_video(
         )
         records = PSNRRecords(os.path.join(save_path, rec_name))
         done = set(records.records) if cfg.resume else set()
-        writer = _get_writer()
+        # A call without images submits nothing: it starts no pool.
+        writer = _get_writer() if cfg.write_images else None
+        needles_pooled = 0  # needle diagrams handed to the pool
 
         # Per timed batch: (host ns of its first event, the device's idle
         # ns before it or None for a call's first batch, upload, step and
@@ -282,6 +295,7 @@ def process_video(
             """Writer thread: wait for the batch's copy, read its timing
             events, write its images, then flush its records; returns its
             real pairs' edge hits."""
+            nonlocal needles_pooled
             with timers.stage("device_get"):
                 if event is not None:
                     event.synchronize()
@@ -296,7 +310,7 @@ def process_video(
                 if cfg.write_images:
                     spent = [0, 0, 0]  # the batch's ns of _PAIR_STAGES
                     for k, idx in enumerate(batch_idx):
-                        _write_pair_outputs(
+                        needles_pooled += _write_pair_outputs(
                             save_path, idx, pf.frame(idx - fd), pf.frame(idx),
                             {key: out[key][k] for key in out}, writer, spent,
                         )
@@ -431,6 +445,8 @@ def process_video(
             "h2d_bytes": h2d_bytes,
             "captures": captures["count"] - captures_before,
             "process_capture_s": captures["seconds"],
+            "png_workers": writer.workers if writer is not None else 0,
+            "needles_pooled": needles_pooled,
         },
     }
     if device_rows:
@@ -462,9 +478,9 @@ def _device_summary(rows, entry_ns: int, main_spans) -> Dict:
     }
 
 
-# The writer's per-pair work, added up a batch: host diffs, gray PNGs (to
-# the pool where there is one), needle diagrams (cv2's drawing and the BGR
-# PNG, written on the writer thread).
+# The writer's per-pair work, added up a batch: host diffs, gray PNGs and
+# needle diagrams (cv2's drawing and its BGR PNG), each PNG handed to the
+# pool where there is one, else written on the writer thread.
 _PAIR_STAGES = ("write_outputs.diff", "write_outputs.png", "write_outputs.needle")
 
 
@@ -476,16 +492,19 @@ def _write_pair_outputs(
     out: Dict[str, np.ndarray],
     writer,
     spent: List[int],
-) -> None:
+) -> int:
     """One pair's five image streams; adds the ns each kind of work took
-    to `spent` (in `_PAIR_STAGES`' order)."""
+    to `spent` (in `_PAIR_STAGES`' order) and returns 1 if the pool took
+    its needle diagram, else 0."""
 
-    def emit(stream: str, name: str, img: np.ndarray) -> None:
+    def emit(stream: str, name: str, img: np.ndarray) -> int:
+        """Writes `img`; returns 1 if it went to the pool, else 0."""
         path = os.path.join(save_path, stream, f"{name}.png")
-        if writer is not None and img.ndim == 2:
-            writer.submit(path, img)
-        else:
+        if writer is None:
             write_png(path, img)
+            return 0
+        writer.submit(path, img)
+        return 1
 
     def diff(a: np.ndarray, b: np.ndarray) -> np.ndarray:
         # host-side twin of ops.metrics.frame_difference (exact int math)
@@ -514,8 +533,9 @@ def _write_pair_outputs(
     emit("curr_comp_diff", str(idx), d)
     lap(PNG)
     needle = draw_motion_field(previous, out["model_motion_field"])
-    emit("model_motion_field", str(idx), needle)
+    pooled = emit("model_motion_field", str(idx), needle)
     lap(NEEDLE)
+    return pooled
 
 
 def summarize_results(out_root: str = "results") -> List[Dict]:

@@ -157,7 +157,8 @@ class _FakeAsyncWriter:
     """Holds submissions until drain(), so a missing image-before-record
     fence leaves recorded pairs whose images are only in the queue."""
 
-    def __init__(self):
+    def __init__(self, workers=2):
+        self.workers = workers
         self.queue = []
 
     def submit(self, path, img):
@@ -181,15 +182,105 @@ def test_images_fenced_before_record(tmp_path, rng, monkeypatch):
     def checked_flush(self):
         for idx in self.records:
             for stream, name in (("compensated", int(idx) - 5), ("frames", int(idx) - 5),
-                                 ("curr_prev_diff", int(idx)), ("curr_comp_diff", int(idx))):
+                                 ("curr_prev_diff", int(idx)), ("curr_comp_diff", int(idx)),
+                                 ("model_motion_field", int(idx))):
                 p = os.path.join(os.path.dirname(self.path), stream, f"{name}.png")
                 assert os.path.exists(p), f"record {idx} flushed before its {stream} image hit disk"
         seen_flushes.append(len(self.records))
         return orig_flush(self)
 
     monkeypatch.setattr(twriters.PSNRRecords, "flush", checked_flush)
-    R.process_video(clip, str(tmp_path / "results_fence"), PipelineConfig(batch_size=2), device="cpu")
+    s = R.process_video(clip, str(tmp_path / "results_fence"), PipelineConfig(batch_size=2),
+                        device="cpu")
     assert seen_flushes == [2, 4, 5]
+    assert s["counters"]["needles_pooled"] == 5 and s["counters"]["png_workers"] == 2
+
+
+def _stream_bytes(root, video="pan_synth"):
+    return {(stream, name): open(os.path.join(root, video, stream, name), "rb").read()
+            for stream in STREAMS
+            for name in sorted(os.listdir(os.path.join(root, video, stream)))}
+
+
+def test_native_pool_writes_the_files_of_synchronous_writes(tmp_path, rng, monkeypatch):
+    """With the native pool (the needle diagrams' BGR PNGs included) every
+    file of the five streams is byte-equal to the writer thread's own
+    writes; the counters say how many needles the pool took and its size."""
+    from gme_tpu_torch.native import loader
+
+    if not loader.available():
+        pytest.skip(f"native runtime not built here: {loader.build_error()}")
+    clip = _make_clip(tmp_path, rng)
+    cfg = PipelineConfig(batch_size=2)
+    pooled = R.process_video(clip, str(tmp_path / "pool"), cfg, device="cpu")
+    assert pooled["counters"]["needles_pooled"] == pooled["pairs_processed"] == 5
+    assert pooled["counters"]["png_workers"] == loader.AsyncPNGWriter().workers >= 2
+    monkeypatch.setattr(R, "_get_writer", lambda: None)
+    synchronous = R.process_video(clip, str(tmp_path / "sync"), cfg, device="cpu")
+    assert synchronous["counters"]["needles_pooled"] == 0
+    assert synchronous["counters"]["png_workers"] == 0
+    got, want = _stream_bytes(str(tmp_path / "pool")), _stream_bytes(str(tmp_path / "sync"))
+    assert len(want) == 5 * 5 and got.keys() == want.keys()
+    for key in want:
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("cores,workers", [(1, 2), (2, 2), (3, 3), (8, 8), (16, 16)])
+def test_pool_size_follows_the_affinity(tmp_path, rng, monkeypatch, cores, workers):
+    """The pool takes as many workers as the process may run on cores, and
+    never fewer than 2; a call without images starts no pool."""
+    from gme_tpu_torch.native import loader
+
+    asked = []
+
+    def writer(n):
+        asked.append(n)
+        return _FakeAsyncWriter(n)
+
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(100, 100 + cores)))
+    monkeypatch.setattr(loader, "available", lambda: True)
+    monkeypatch.setattr(loader, "AsyncPNGWriter", writer)
+    clip = _make_clip(tmp_path, rng)
+    s = R.process_video(clip, str(tmp_path / "img"), PipelineConfig(batch_size=2), device="cpu")
+    assert asked == [workers] and s["counters"]["png_workers"] == workers
+    s = R.process_video(clip, str(tmp_path / "noimg"),
+                        PipelineConfig(batch_size=2, write_images=False), device="cpu")
+    assert asked == [workers]
+    assert s["counters"]["png_workers"] == s["counters"]["needles_pooled"] == 0
+
+
+class _PathsWriter(_FakeAsyncWriter):
+    """`_FakeAsyncWriter` that keeps the path of every submission."""
+
+    def __init__(self):
+        super().__init__()
+        self.paths = []
+
+    def submit(self, path, img):
+        self.paths.append(path)
+        super().submit(path, img)
+
+
+def test_every_needle_goes_through_the_pool(tmp_path, rng, monkeypatch):
+    """With a pool, all five streams, the needle diagrams' BGR PNGs
+    included, go to it and none is written on the writer thread; without
+    one, all are written there.  `needles_pooled` counts the needles the
+    pool took."""
+    clip = _make_clip(tmp_path, rng)
+    synchronous = []
+    real = R.write_png
+    monkeypatch.setattr(R, "write_png", lambda path, img: (synchronous.append(path),
+                                                           real(path, img)))
+    pool = _PathsWriter()
+    monkeypatch.setattr(R, "_get_writer", lambda: pool)
+    s = R.process_video(clip, str(tmp_path / "pool"), PipelineConfig(batch_size=2), device="cpu")
+    needles = [p for p in pool.paths if p.split(os.sep)[-2] == "model_motion_field"]
+    assert len(pool.paths) == 5 * 5 and len(needles) == 5 and synchronous == []
+    assert s["counters"]["needles_pooled"] == 5
+    monkeypatch.setattr(R, "_get_writer", lambda: None)
+    s = R.process_video(clip, str(tmp_path / "sync"), PipelineConfig(batch_size=2), device="cpu")
+    assert len(synchronous) == 5 * 5 and s["counters"]["needles_pooled"] == 0
+    assert sum(p.split(os.sep)[-2] == "model_motion_field" for p in synchronous) == 5
 
 
 def test_streaming_decode_stages(tmp_path, rng):

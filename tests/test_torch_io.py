@@ -6,6 +6,8 @@ frame prefetcher, the needle diagram, and the native runtime built by g++.
 import json
 import os
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -243,6 +245,50 @@ def test_native_png_pixels_and_async_pool(fresh_loader, tmp_path, rng):
     pool.submit(str(tmp_path / "no_such_dir" / "x.png"), imgs[0])
     with pytest.raises(IOError, match="failed"):  # a failed write surfaces at the drain
         pool.drain()
+
+
+@pytest.mark.parametrize("shape", [(240, 320, 3), (9, 13, 3), (21, 34)])
+def test_native_pool_writes_the_bytes_of_write_png(fresh_loader, tmp_path, rng, shape):
+    """The pool encodes a BGR needle (and a gray image) into the bytes
+    `write_png` writes, from a copy taken on submit."""
+    _needs_toolchain()
+    img = rng.randint(0, 256, shape, np.uint8)
+    fresh_loader.write_png(str(tmp_path / "sync.png"), img)
+    pool = fresh_loader.AsyncPNGWriter(2)
+    submitted = img.copy()
+    pool.submit(str(tmp_path / "pool.png"), submitted)
+    submitted[:] = 0  # the pool copied the pixels on submit
+    pool.drain()
+    got = (tmp_path / "pool.png").read_bytes()
+    assert got == (tmp_path / "sync.png").read_bytes()
+    flag = cv2.IMREAD_COLOR if img.ndim == 3 else cv2.IMREAD_GRAYSCALE
+    assert np.array_equal(cv2.imread(str(tmp_path / "pool.png"), flag), img)
+
+
+_POOL_SIZE_SCRIPT = """
+import os, sys
+from gme_tpu_torch.native import loader
+loader._BUILD_DIR = sys.argv[1]
+def threads():
+    return len(os.listdir("/proc/self/task"))
+before = threads()
+first = loader.AsyncPNGWriter(5)
+started = threads() - before
+second = loader.AsyncPNGWriter(9)
+print(first.workers, second.workers, started, threads() - before - started)
+"""
+
+
+def test_native_pool_runs_at_the_first_writers_size(fresh_loader, tmp_path):
+    """The library starts its pool once a process: the first writer's size
+    is the one every writer reports, and a larger one starts no thread."""
+    _needs_toolchain()
+    fresh_loader.build()
+    out = subprocess.run([sys.executable, "-c", _POOL_SIZE_SCRIPT, str(tmp_path / "build")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["5", "5", "5", "0"]
 
 
 def test_native_true_raises_when_not_built(fresh_loader, monkeypatch, tmp_path, rng):

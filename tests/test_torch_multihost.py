@@ -159,6 +159,65 @@ def test_two_process_gloo(tmp_path):
     assert merged == _single(tmp_path, path)
 
 
+_SHARE_WORKER = textwrap.dedent("""
+    import os, sys
+    video, out, pid, port = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+    import gme_tpu_torch.pipeline.results as R
+    from gme_tpu_torch.config import GMEConfig, PipelineConfig
+    from gme_tpu_torch.parallel.multihost import process_video_multihost
+    seen = []
+    # No pool: record the cores and the size the call would give it.
+    R._get_writer = lambda: seen.append((sorted(os.sched_getaffinity(0)), R._png_workers()))
+    cfg = PipelineConfig(gme=GMEConfig(volume_radius=8, dense_volume_radius=8), batch_size=4)
+    before = sorted(os.sched_getaffinity(0))
+    process_video_multihost(video, out_root=out, cfg=cfg, num_processes=2, process_id=pid,
+                            coordinator_address=f"127.0.0.1:{port}", gop_size=3,
+                            device="cpu")
+    (cores, workers), = seen
+    print("RANK", pid, " ".join(map(str, cores)), "WORKERS", workers,
+          "RESTORED", sorted(os.sched_getaffinity(0)) == before)
+""")
+
+
+def test_ranks_on_one_host_divide_its_cores(tmp_path):
+    """Two coordinated ranks on one host, on the same cores: each runs its
+    call on a disjoint half of them, sizes its PNG pool from that half, and
+    gets its whole affinity back after the call."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 2:
+        pytest.skip("one core: nothing to divide")
+    path = _tiny_video(tmp_path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _SHARE_WORKER, path, str(tmp_path / "out"),
+                          str(pid), str(port)],
+                         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for pid in range(2)
+    ]
+    outputs = []
+    try:
+        for p in procs:
+            stdout, _ = p.communicate(timeout=240)
+            outputs.append(stdout.decode())
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("gloo workers hung:\n" + "\n".join(outputs))
+    shares = []
+    for pid, (p, o) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, o
+        line = [ln for ln in o.splitlines() if ln.startswith(f"RANK {pid} ")][-1].split()
+        share = [int(c) for c in line[2:line.index("WORKERS")]]
+        assert int(line[line.index("WORKERS") + 1]) == max(2, len(share))
+        assert line[-1] == "True"
+        shares.append(share)
+    half = len(cores) // 2
+    assert shares == [cores[:half], cores[half:]]
+
+
 def test_merge_rejects_stale_rank_manifests(tmp_path):
     d = tmp_path / "v"
     d.mkdir()

@@ -32,6 +32,8 @@ CHILDREN = {"dispatch": ("stack", "upload", "step", "copy_out"),
 class _LoggedWriter:
     """The pool's interface: writes at once, logging each path."""
 
+    workers = 2
+
     def __init__(self, log):
         self.log = log
 
@@ -45,6 +47,8 @@ class _LoggedWriter:
 
 class _QueueWriter:
     """The pool's interface: holds submissions until drain()."""
+
+    workers = 2
 
     def __init__(self):
         self.queue = []
@@ -100,7 +104,10 @@ def test_summary_holds_every_stage_and_counter(traced):
                  "write_outputs.diff", "write_outputs.png", "write_outputs.needle",
                  "write_outputs.drain", "write_outputs.records"):
         assert s["stages"][name]["count"] == 3, name  # one a batch, not a pair
-    assert set(s["counters"]) == {"slots", "h2d_bytes", "captures", "process_capture_s"}
+    assert set(s["counters"]) == {"slots", "h2d_bytes", "captures", "process_capture_s",
+                                  "png_workers", "needles_pooled"}
+    assert s["counters"]["png_workers"] == 2
+    assert s["counters"]["needles_pooled"] == s["pairs_processed"] == 5
     assert "device" not in s  # CUDA events only
 
 
